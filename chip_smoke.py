@@ -2,23 +2,38 @@
 
     python3 chip_smoke.py
 
-Drives m3d_torch's adaptive Mask R-CNN inference at the bench configuration
-(128^3 volumes, batch 4, ResNet-50, bf16) on the tracked checkpoint
-weights/bench_ckpt.f16.msgpack and four seeded synthetic volumes, through
-the compact mask-stage ROIAlign kernel (m3d_torch/csrc/roialign_compact.cu).
-Phases, each printing one flushed line with the elapsed seconds:
+Drives m3d_torch's Mask R-CNN inference at the bench configuration (128^3
+volumes, batch 4, ResNet-50, bf16) on the tracked checkpoint
+weights/bench_ckpt.f16.msgpack and four seeded synthetic volumes, along two
+paths: the adaptive graph (the compact mask-stage ROIAlign kernel,
+m3d_torch/csrc/roialign_compact.cu) and the monolithic graph
+(``MaskRCNN.forward``: the fused ROIAlign + FC kernel
+m3d_torch/csrc/roialign_fc.cu, the slab kernel m3d_torch/csrc/roialign_slab.cu
+for its fallback rows, and the compact kernel through its padded entry for
+the mask stage). Phases, each printing flushed lines with the elapsed
+seconds:
 
-  env       card name and power limit, torch/CUDA versions, nvcc; arms a
-            watchdog that dumps every thread's stack and exits non-zero
-  build     nvcc build of the kernel library (or the cached one)
-  load      flax msgpack -> state dict; fails if a tensor is missing
-  kernel    kernel vs its plain PyTorch version on random compact batches
-            at the bench shapes, total in {0, 1, 37, N}
-  adaptive  adaptive_inference on the bench volumes; recall against GT
-            must be >= 0.7 and the kernel must have been launched
-  captured  kernel vs plain version on the mask-stage inputs of `adaptive`
-  time      adaptive vol/s, and kernel / plain / F.grid_sample ms with the
-            kernel's memory bound, all timed with CUDA events
+  env         card name and power limit, torch/CUDA versions, nvcc; arms a
+              watchdog that dumps every thread's stack and exits non-zero
+  build       the three kernel libraries, one nvcc each, started together
+  load        flax msgpack -> state dict; fails if a tensor is missing
+  kernel      compact kernel vs its plain PyTorch version on random compact
+              batches at the bench shapes, total in {0, 1, 37, N}; padded,
+              slab and fused kernels vs theirs on random batches at the
+              bench shapes, bounds (0, 0), (0, 1), (0, N) and an offset
+  adaptive    adaptive_inference on the bench volumes; recall against GT
+              must be >= 0.7 and the compact kernel must have been launched
+  captured    compact kernel vs plain version on the inputs of `adaptive`
+  monolithic  MaskRCNN.forward on the same volumes: recall >= 0.7, finite
+              outputs, masks in [0, 1], and the fused, slab and padded
+              kernels each launched; detections matched against `adaptive`
+  captured    padded, fused and slab kernels vs their plain versions on the
+              inputs of `monolithic`, and on a forced-fallback classifier
+              (fc_slab_cap (8, 8, 16): most rows take the slab kernel),
+              whose split result must equal the default split's
+  time        adaptive and monolithic vol/s and stage splits, and each
+              kernel's / plain / library ms beside its bound, all timed
+              with CUDA events
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -43,10 +58,18 @@ sys.dont_write_bytecode = True  # leave no __pycache__ in the checkout
 WATCHDOG_S = 1100          # below the 1200 s limit the smoke runs under
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM, bf16 tensor cores, dense
 BATCH, SIZE = 4, 128
 RECALL_FLOOR = 0.7
 KERNEL_TOL = 1e-2          # x max|ref|: one bf16 rounding of the output
-REPLACES = "m3d/ops/pallas_roialign.py:1022"  # _kernel_vmem_compact
+FORCED_CAP = (8, 8, 16)    # fc_slab_cap that sends most rows to the slab kernel
+PALLAS = "m3d/ops/pallas_roialign.py"
+# TPU kernel bodies the port's kernels replace (file:line).
+REPLACES = {"roialign_compact": f"{PALLAS}:1022",     # _kernel_vmem_compact
+            "roialign_fc (kron)": f"{PALLAS}:497",    # _kernel_slab_fc_kron
+            "roialign_padded": f"{PALLAS}:177",       # _kernel_vmem
+            "roialign_slab": f"{PALLAS}:42",          # _kernel
+            "roialign_fc (separable)": f"{PALLAS}:273"}  # _kernel_slab_fc
 
 T0 = time.perf_counter()
 
@@ -80,6 +103,49 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0):
+    """Least time on this card (ms) for the bytes (each input read once,
+    each output written once) and the operations. Memory, the float32
+    units and the tensor cores work at once, so the least time is the
+    largest of the three. Returns (ms, "bytes" or "operations", the unit
+    that sets it)."""
+    times = {"HBM": nbytes / HBM_BYTES_PER_S,
+             "float32 units": f32_ops / FP32_FLOPS,
+             "bf16 tensor cores": bf16_ops / BF16_FLOPS}
+    unit = max(times, key=times.get)
+    return times[unit] * 1e3, ("bytes" if unit == "HBM" else "operations"), \
+        unit
+
+
+def reset_counts() -> None:
+    from m3d_torch.ops import roialign_compact as rc
+    from m3d_torch.ops import roialign_fc as rf
+    from m3d_torch.ops import roialign_slab as rs
+
+    for k in (rc.KERNEL, rc.PADDED, rf.KERNEL, rs.KERNEL):
+        k.launches = 0
+
+
+def check_close(got, ref, label: str, lo: int = 0, hi=None) -> float:
+    """max |got - ref| <= KERNEL_TOL * max|ref|, rows outside [lo, hi)
+    exactly zero, everything finite. Returns the max abs error."""
+    torch.cuda.synchronize()
+    got, ref = got.float(), ref.float()
+    hi = got.shape[0] if hi is None else hi
+    err = (got - ref).abs().max().item() if got.numel() else 0.0
+    scale = ref.abs().max().item() if ref.numel() else 0.0
+    if err > KERNEL_TOL * scale:
+        raise AssertionError(f"{label}: max abs err {err} > "
+                             f"{KERNEL_TOL} * max|ref| {scale}")
+    if (got[:lo] != 0).any() or (got[hi:] != 0).any():
+        raise AssertionError(f"{label}: rows outside [{lo}, {hi}) not zero")
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: non-finite output")
+    phase("kernel", f"{label}: N={got.shape[0]} rows [{lo}, {hi}) "
+          f"max_abs_err={err:.3e} max|ref|={scale:.3e}")
+    return err
 
 
 def compare(args, label: str) -> float:
@@ -150,24 +216,29 @@ def touched_voxels(levels, bat, total, pos, fms) -> int:
     return count
 
 
-def kernel_bound_ms(args) -> float:
-    """Least time for the function's bytes on this card: the output written
-    once, each voxel the live rows touch read once, the row metadata read
-    once. (Its ~16 float32 flops per live output element are far below.)"""
+def kernel_bound_ms(args):
+    """Least time of the compact kernel's function on this card: the
+    output written once, each voxel the live rows touch read once, the row
+    metadata read once; ~16 float32 flops per live output element. Returns
+    bound()'s triple."""
     levels, bat, total, pos, fms = args
     n, _, p = pos.shape
     c, item = fms[0].shape[-1], fms[0].element_size()
     out_bytes = n * p ** 3 * c * item
     in_bytes = touched_voxels(*args) * c * item + pos.numel() * 4 + 8 * n + 4
-    ops = 16 * int(total) * p ** 3 * c
-    return max((out_bytes + in_bytes) / HBM_BYTES_PER_S,
-               ops / FP32_FLOPS) * 1e3
+    return bound(out_bytes + in_bytes, f32_ops=16 * int(total) * p ** 3 * c)
 
 
 def grid_sample_call(args):
     """One F.grid_sample over the same pooled rows, as a yardstick only:
     levels zero-padded to one extent, rows of each (image, level) pair
     stacked along the output's first axis. Returns a closure to time."""
+    return grid_sample_rows(args)[0]
+
+
+def grid_sample_rows(args):
+    """grid_sample_call's closure, its row count per group, and where each
+    row (in row order) lies in the output's flattened (group, row) axis."""
     import torch.nn.functional as F
 
     levels, bat, total, pos, fms = args
@@ -197,8 +268,164 @@ def grid_sample_call(args):
         sl[..., 1] = nx[:, None, :, None]
         sl[..., 2] = ny[:, :, None, None]
     grid = grid.to(inp.dtype)
-    return lambda: F.grid_sample(inp, grid, mode="bilinear",
-                                 padding_mode="zeros", align_corners=True)
+    flat_idx = torch.zeros(t, dtype=torch.long, device=pos.device)
+    for g, rows in enumerate(rows_of):
+        flat_idx[rows] = g * r_max + torch.arange(len(rows),
+                                                  device=pos.device)
+    return (lambda: F.grid_sample(inp, grid, mode="bilinear",
+                                  padding_mode="zeros", align_corners=True),
+            r_max, flat_idx)
+
+
+def weight_positions(origins, wy, wx, wz):
+    """[N, 3, p] sample positions that slab weights interpolate at
+    (origin + sum_s s * w_s over a row of two linear taps); -1 where a row
+    of weights is zero (a sample outside the level)."""
+    out = []
+    for a, w in enumerate((wy, wx, wz)):
+        cols = torch.arange(w.shape[2], device=w.device, dtype=torch.float32)
+        tot = w.sum(-1)
+        pos = origins[:, a, None].float() + (w * cols).sum(-1) / \
+            tot.clamp_min(1e-30)
+        out.append(torch.where(tot > 0, pos, torch.full_like(pos, -1.0)))
+    return torch.stack(out, 1).contiguous()
+
+
+def slab_rows_in_bounds(args):
+    """(levels, batch, count, positions, features) of the rows inside a
+    slab-contract call's bounds, in grid_sample_call's argument form."""
+    levels, bat, origins, wy, wx, wz, fms = args[:7]
+    off, cnt = args[-1].tolist()
+    sl = slice(off, off + cnt)
+    return (levels[sl], bat[sl], torch.tensor(cnt),
+            weight_positions(origins[sl], wy[sl], wx[sl], wz[sl]), fms)
+
+
+def fc_library_call(args):
+    """F.grid_sample over the rows in bounds, then torch.matmul with the
+    FC weight, as a yardstick only. Returns a closure to time."""
+    wk = args[7]
+    gs_args = slab_rows_in_bounds(args)
+    p = gs_args[3].shape[2]
+    sample, r_max, flat_idx = grid_sample_rows(gs_args)
+
+    def run():
+        out = sample()                                 # [G, C, R*p, p, p]
+        g, c = out.shape[:2]
+        rows = out.reshape(g, c, r_max, p, p, p).permute(
+            0, 2, 3, 4, 5, 1).reshape(g * r_max, -1)
+        return rows.index_select(0, flat_idx) @ wk
+    return run
+
+
+def slab_touched(args):
+    """Distinct feature voxels the rows inside a slab-contract call's bounds
+    read with a nonzero weight, and the taps (nonzero weight products) they
+    sum."""
+    levels, bat, origins, wy, wx, wz, fms = args[:7]
+    off, cnt = args[-1].tolist()
+    rows = torch.arange(off, off + cnt, device=wy.device)
+    voxels, taps = 0, 0.0
+    for lv in range(4):
+        r_all = rows[levels[rows] == lv]
+        if r_all.numel() == 0:
+            continue
+        b, h, w, d = fms[lv].shape[:4]
+        occ = torch.zeros(b, h + 1, w + 1, d + 1, dtype=torch.bool,
+                          device=wy.device)
+        for r in r_all.split(256):
+            idx, nnz = [], []
+            for a, (wt, size) in enumerate(zip((wy, wx, wz), (h, w, d))):
+                ww = wt[r]                                      # [r, p, S]
+                co = origins[r, a].long()[:, None] + torch.arange(
+                    ww.shape[2], device=wy.device)
+                nz = (ww != 0) & ((co >= 0) & (co < size))[:, None, :]
+                idx.append(torch.where(nz.any(1), co,
+                                       torch.full_like(co, size)))
+                nnz.append(nz.sum((1, 2)).double())
+            taps += float((nnz[0] * nnz[1] * nnz[2]).sum())
+            occ[bat[r].long()[:, None, None, None], idx[0][:, :, None, None],
+                idx[1][:, None, :, None], idx[2][:, None, None, :]] = True
+        voxels += int(occ[:, :h, :w, :d].sum())
+    return voxels, taps
+
+
+def slab_bound(args, fc: bool = False):
+    """Least time of the slab kernel's (or, with ``fc``, the fused
+    kernel's) function on these inputs: every output row written once, the
+    voxels and the weights of the rows in bounds read once, 2 float32 flops
+    a tap and channel; the fused kernel adds its weight, read once, and
+    2 * rows * K * F bf16 tensor-core flops. Returns bound()'s triple."""
+    wy, wx, wz, fms = args[3], args[4], args[5], args[6]
+    n, p = wy.shape[:2]
+    cnt = int(args[-1][1])
+    c, item = fms[0].shape[-1], fms[0].element_size()
+    voxels, taps = slab_touched(args)
+    in_bytes = (voxels * c * item + 20 * cnt
+                + cnt * p * (wy.shape[2] + wx.shape[2] + wz.shape[2]) * 4 + 8)
+    if not fc:
+        return bound(n * p ** 3 * c * item + in_bytes, f32_ops=2 * taps * c)
+    wk = args[7]
+    k, f = wk.shape
+    return bound(n * f * 4 + k * f * wk.element_size() + in_bytes,
+                 f32_ops=2 * taps * c, bf16_ops=2.0 * cnt * k * f)
+
+
+def compare_padded(args, label: str) -> float:
+    from m3d_torch.ops import roialign_compact as rc
+
+    levels, pos, fms, n_per = args
+    n = pos.shape[0]
+    got = rc.roialign_padded(*args)
+    bat = torch.div(torch.arange(n, device=pos.device, dtype=torch.int32),
+                    n_per, rounding_mode="floor")
+    total = torch.tensor(n, dtype=torch.int32, device=pos.device)
+    ref = rc.roialign_compact_plain(levels, bat, total, pos,
+                                    [f.float() for f in fms])
+    return check_close(got, ref, label)
+
+
+def compare_slab(args, label: str) -> float:
+    from m3d_torch.ops import roialign_slab as rs
+
+    got = rs.roialign_slab(*args)
+    ref = rs.roialign_slab_plain(*args[:6], [f.float() for f in args[6]],
+                                 args[7])
+    off, cnt = args[7].tolist()
+    return check_close(got, ref, label, off, off + cnt)
+
+
+def compare_fc(args, label: str) -> float:
+    """The fused kernel against its plain version in the working type: both
+    round the pooled rows to bf16 and multiply by the bf16 weight."""
+    from m3d_torch.ops import roialign_fc as rf
+
+    got = rf.roialign_fc(*args)
+    ref = rf.roialign_fc_plain(*args)
+    off, cnt = args[8].tolist()
+    return check_close(got, ref, label, off, off + cnt)
+
+
+def random_slab_batch(fms, n: int, p: int, gen, cap, bounds):
+    """Slab-contract rows at the bench shapes (levels cycling over all
+    four, boxes inside the unit cube), weights for the slab
+    min(cap, exact-coverage slab) as the fused classifier places them."""
+    from m3d_torch.ops import roialign3d
+
+    dev = fms[0].device
+    bsz = fms[0].shape[0]
+    lo = torch.rand(n, 3, generator=gen, device=dev) * 0.6
+    ext = 0.05 + torch.rand(n, 3, generator=gen, device=dev) * 0.35
+    boxes = torch.cat([lo, (lo + ext).clamp(max=1.0)], dim=1)
+    levels = (torch.arange(n, device=dev) % 4).to(torch.int32)
+    bat = torch.sort(torch.randint(0, bsz, (n,), generator=gen,
+                                   device=dev)).values.to(torch.int32)
+    rd, pos = roialign3d._level_positions(boxes, levels, fms, p)
+    slab, pdims = roialign3d._slab_geometry(fms)
+    tier = tuple(min(a, b) for a, b in zip(cap, slab))
+    weights = roialign3d._slab_weights(pos, rd, pdims[levels.long()], tier)
+    return [levels, bat, *weights, fms,
+            torch.tensor(bounds, dtype=torch.int32, device=dev)]
 
 
 def stage_ms(model, image, meta_b, anchors, chunks) -> dict:
@@ -238,6 +465,79 @@ def stage_ms(model, image, meta_b, anchors, chunks) -> dict:
             for i, n in enumerate(names)}
 
 
+def monolithic_stage_ms(model, image, meta_b, anchors) -> dict:
+    """CUDA-event ms of each stage of one monolithic step, chained as
+    MaskRCNN.forward chains them."""
+    from m3d_torch.models.detection import refine_detections_batch
+
+    names = ("trunk", "rpn_head", "proposals", "classifier", "detection",
+             "mask")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        ev[0].record()
+        feats = model.extract_features(image.float())
+        ev[1].record()
+        _, probs, deltas = model.rpn_forward(list(feats))
+        ev[2].record()
+        props, _ = model.propose(probs, deltas, anchors)
+        ev[3].record()
+        _, cls_probs, cls_bbox = model.classify_rois(props, meta_b,
+                                                     list(feats[:4]))
+        ev[4].record()
+        det, _ = refine_detections_batch(
+            props, cls_probs, cls_bbox, meta_b, model.bbox_std_dev,
+            model.detection_min_confidence, model.detection_nms_threshold,
+            model.detection_max_instances,
+            nms_xy_only=model.detection_nms_xy_only)
+        ev[5].record()
+        model.mask_rois(det[..., :6], meta_b, list(feats[:4]))
+        ev[6].record()
+    torch.cuda.synchronize()
+    return {n: round(ev[i].elapsed_time(ev[i + 1]), 3)
+            for i, n in enumerate(names)}
+
+
+class Spy:
+    """Replaces kernel entry points in m3d_torch.ops.roialign3d by wrappers
+    that record their arguments, until ``restore``."""
+
+    NAMES = ("roialign_fc", "roialign_slab", "roialign_padded",
+             "roialign_compact")
+
+    def __init__(self):
+        from m3d_torch.ops import roialign3d
+
+        self.mod = roialign3d
+        self.real = {n: getattr(roialign3d, n) for n in self.NAMES}
+        self.calls = {n: [] for n in self.NAMES}
+        for n in self.NAMES:
+            setattr(roialign3d, n, self._wrap(n))
+
+    def _wrap(self, name):
+        def spy(*args):
+            self.calls[name].append(args)
+            return self.real[name](*args)
+        return spy
+
+    def restore(self) -> None:
+        for n, fn in self.real.items():
+            setattr(self.mod, n, fn)
+
+
+def matched_detections(det_ref, valid_ref, det, valid) -> int:
+    """Valid detections of ``det`` that overlap a valid detection of
+    ``det_ref`` in the same volume at IoU >= 0.5."""
+    from m3d_torch.utils.metrics import overlaps_3d_numpy
+
+    n = 0
+    for b in range(det.shape[0]):
+        a, m = det_ref[b, valid_ref[b], :6], det[b, valid[b], :6]
+        if len(a) and len(m):
+            n += int((overlaps_3d_numpy(m, a).max(1) >= 0.5).sum())
+    return n
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -269,15 +569,22 @@ def main() -> int:
     from m3d_torch.models.mask_rcnn import MaskRCNN
     from m3d_torch.ops import roialign3d
     from m3d_torch.ops import roialign_compact as rc
+    from m3d_torch.ops import roialign_fc as rf
+    from m3d_torch.ops import roialign_slab as rs
+    from m3d_torch.ops.cuda_build import build_all
     from m3d_torch.utils.metrics import detection_recall
 
     # build ------------------------------------------------------------
     t = time.perf_counter()
-    rc.load_library()
-    ptxas = " | ".join(ln.strip() for ln in rc.KERNEL.build_log.splitlines()
-                       if "registers" in ln or "spill" in ln)
-    phase("build", f"{time.perf_counter() - t:.2f}s "
-          f"({'built' if rc.KERNEL.build_seconds else 'cached'}) {ptxas}")
+    libs = (rc.LIB, rf.LIB, rs.LIB)
+    build_all(libs)
+    for lib in libs:
+        ptxas = " | ".join(ln.strip() for ln in lib.build_log.splitlines()
+                           if "registers" in ln or "spill" in ln)
+        how = (f"built in {lib.build_seconds:.2f}s" if lib.build_seconds
+               else "cached")
+        phase("build", f"{lib.name}: {how} {ptxas}")
+    phase("build", f"{time.perf_counter() - t:.2f}s for all three")
 
     # load -------------------------------------------------------------
     t = time.perf_counter()
@@ -294,19 +601,33 @@ def main() -> int:
     if stats["missing"] or stats["skipped"]:
         raise AssertionError(f"checkpoint does not cover the model: {stats}")
 
-    # kernel: random compact batches at the bench shapes ------------------
+    # kernel: random batches at the bench shapes -------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
-    m = cfg.MASK_POOL_SIZE
+    m, p = cfg.MASK_POOL_SIZE, cfg.POOL_SIZE
     shapes = cfg.backbone_shapes()[:4]
     fms = [torch.randn(BATCH, *map(int, s), cfg.TOP_DOWN_PYRAMID_SIZE,
                        generator=gen, device=dev).to(torch.bfloat16)
            for s in shapes]
     n_rows = BATCH * cfg.DETECTION_MAX_INSTANCES
-    errs = {}
+    errs = {k: [] for k in REPLACES}
     for total in (0, 1, 37, n_rows):
         args = random_compact_batch(fms, n_rows, total, m, gen)
-        errs[f"random total={total}"] = compare(args, f"random total={total}")
-    del fms
+        errs["roialign_compact"].append(
+            compare(args, f"compact random total={total}"))
+    levels, _, _, pos, _ = random_compact_batch(fms, n_rows, n_rows, m, gen)
+    errs["roialign_padded"].append(compare_padded(
+        (levels, pos, fms, cfg.DETECTION_MAX_INSTANCES), "padded random"))
+    n_cls = BATCH * cfg.POST_NMS_ROIS_INFERENCE
+    conv1 = model.classifier.mrcnn_class_conv1
+    wk = rf.conv1_weight_kf(conv1.weight, torch.bfloat16)
+    for bounds in ((0, 0), (0, 1), (0, n_cls), (700, 600)):
+        args = random_slab_batch(fms, n_cls, p, gen, (99, 99, 99), bounds)
+        errs["roialign_slab"].append(
+            compare_slab(args, f"slab random bounds={bounds}"))
+        args = random_slab_batch(fms, n_cls, p, gen, (16, 16, 24), bounds)
+        errs["roialign_fc (kron)"].append(compare_fc(
+            args[:7] + [wk, args[7]], f"fc random bounds={bounds}"))
+    del fms, args
 
     # adaptive ---------------------------------------------------------
     image, gt_boxes = make_volumes(BATCH, SIZE)
@@ -315,25 +636,20 @@ def main() -> int:
                              device=dev)
     image = torch.as_tensor(image, device=dev)
     cls_chunk, mask_chunk = default_chunks(model)
-    captured = []
-    real_kernel = roialign3d.roialign_compact
-
-    def capture(*args):
-        captured.append(args)
-        return real_kernel(*args)
 
     def run():
         return adaptive_inference(model, image, meta_b, anchors,
                                   classifier_chunk=cls_chunk,
                                   mask_chunk=mask_chunk)
 
-    roialign3d.roialign_compact = capture
+    spy = Spy()
     t = time.perf_counter()
-    rc.KERNEL.launches = 0
+    reset_counts()
     out = run()
     torch.cuda.synchronize()
-    launches = rc.KERNEL.launches
-    roialign3d.roialign_compact = real_kernel
+    launches = {"roialign_compact": rc.KERNEL.launches}
+    spy.restore()
+    captured = spy.calls["roialign_compact"]
     first_s = time.perf_counter() - t
     det = out["detections"].float().cpu().numpy()
     valid = out["detections_valid"].cpu().numpy()
@@ -352,14 +668,97 @@ def main() -> int:
         raise AssertionError(f"bad outputs: masks {tuple(masks.shape)}")
     if float(masks.min()) < 0 or float(masks.max()) > 1:
         raise AssertionError("mask probabilities outside [0, 1]")
-    if launches < 1 or len(captured) != launches:
-        raise AssertionError(f"mask-stage kernel launches={launches}")
+    n_launch = launches["roialign_compact"]
+    if n_launch < 1 or len(captured) != n_launch:
+        raise AssertionError(f"mask-stage kernel launches={n_launch}")
     if recall < RECALL_FLOOR:
         raise AssertionError(f"recall {recall:.4f} < {RECALL_FLOOR}")
 
-    # captured: the main path's own kernel inputs ----------------------
+    # captured: the adaptive path's own kernel inputs --------------------
     args = captured[0]
-    err_main = compare(args, "captured mask-stage inputs")
+    errs["roialign_compact"].append(compare(args,
+                                            "captured mask-stage inputs"))
+
+    # monolithic ---------------------------------------------------------
+    spy = Spy()
+    t = time.perf_counter()
+    reset_counts()
+    out_m = model(image, meta_b, anchors)
+    torch.cuda.synchronize()
+    for key, lc in (("roialign_fc (kron)", rf.KERNEL),
+                    ("roialign_padded", rc.PADDED),
+                    ("roialign_slab", rs.KERNEL)):
+        launches[key] = lc.launches
+    # Kernel 5 has no caller on the main path: its TPU entry's function is
+    # the kron entry's, served by the same launch, counted once above.
+    launches["roialign_fc (separable)"] = 0
+    spy.restore()
+    first_m = time.perf_counter() - t
+    det_m = out_m["detections"].float().cpu().numpy()
+    valid_m = out_m["detections_valid"].cpu().numpy()
+    masks_m = out_m["mrcnn_masks"]
+    n_gt, n_match_m, n_det_m = detection_recall(det_m, valid_m, gt_boxes,
+                                                SIZE)
+    recall_m = n_match_m / n_gt if n_gt else 0.0
+    same = matched_detections(det, valid, det_m, valid_m)
+    phase("monolithic", f"first call {first_m:.2f}s gt_objects={n_gt} "
+          f"detections={n_det_m} matched={n_match_m} "
+          f"recall={recall_m:.4f} "
+          f"detections/image={valid_m.sum(1).tolist()} "
+          f"matching an adaptive detection at IoU>=0.5: {same} of "
+          f"{n_det_m} (adaptive had {n_det}) kernel launches={launches}")
+    if tuple(masks_m.shape) != want or not torch.isfinite(masks_m).all() \
+            or not np.isfinite(det_m).all() \
+            or not torch.isfinite(out_m["mrcnn_probs"]).all():
+        raise AssertionError(f"bad monolithic outputs: masks "
+                             f"{tuple(masks_m.shape)}")
+    if float(masks_m.min()) < 0 or float(masks_m.max()) > 1:
+        raise AssertionError("monolithic mask probabilities outside [0, 1]")
+    for key, name in (("roialign_fc (kron)", "roialign_fc"),
+                      ("roialign_padded", "roialign_padded"),
+                      ("roialign_slab", "roialign_slab")):
+        if launches[key] < 1 or len(spy.calls[name]) != launches[key]:
+            raise AssertionError(f"monolithic {key} launches="
+                                 f"{launches[key]}")
+    if recall_m < RECALL_FLOOR:
+        raise AssertionError(f"monolithic recall {recall_m:.4f} < "
+                             f"{RECALL_FLOOR}")
+
+    # captured: the monolithic path's own kernel inputs ------------------
+    args_fc = spy.calls["roialign_fc"][0]
+    args_pad = spy.calls["roialign_padded"][0]
+    args_slab_main = spy.calls["roialign_slab"][0]
+    errs["roialign_fc (kron)"].append(compare_fc(
+        args_fc, "captured classifier inputs (fused)"))
+    errs["roialign_slab"].append(compare_slab(
+        args_slab_main, "captured classifier inputs (fallback rows)"))
+    errs["roialign_padded"].append(compare_padded(
+        args_pad, "captured mask-stage inputs (padded)"))
+    # Forced fallback: a small fc_slab_cap sends most rows through the
+    # slab kernel, and the split must give the default split's result.
+    with torch.no_grad():
+        feats = model.extract_features(image.float())
+        _, probs, deltas = model.rpn_forward(list(feats))
+        props, _ = model.propose(probs, deltas, anchors)
+        feats = list(feats[:4])
+        default = roialign3d.pyramid_roi_align_fc(
+            props, meta_b, feats, p, conv1.weight, kernel="kron")
+        spy = Spy()
+        forced = roialign3d.pyramid_roi_align_fc(
+            props, meta_b, feats, p, conv1.weight, fc_slab_cap=FORCED_CAP,
+            kernel="separable")
+        spy.restore()
+    args_slab = spy.calls["roialign_slab"][0]
+    args_fc_forced = spy.calls["roialign_fc"][0]
+    n_fit = int(args_fc_forced[-1][1])
+    if int(args_slab[-1][1]) < 1:
+        raise AssertionError("forced fallback: no row took the slab kernel")
+    errs["roialign_slab"].append(compare_slab(
+        args_slab, f"forced fallback {FORCED_CAP} (slab rows)"))
+    errs["roialign_fc (separable)"].append(compare_fc(
+        args_fc_forced, f"forced fallback {FORCED_CAP} (fused rows)"))
+    check_close(forced, default, f"forced fallback split (n_fit={n_fit} of "
+                f"{forced.shape[0] * forced.shape[1]}) vs default split")
 
     # time -------------------------------------------------------------
     run()
@@ -373,43 +772,102 @@ def main() -> int:
         wall.append(time.perf_counter() - t)
     step_ms = cuda_ms(run, reps)
     vols = BATCH / (step_ms / 1e3)
-    kern = lambda: rc.roialign_compact(*args)  # noqa: E731
-    levels, bat, total, pos, fms_main = args
-    plain = lambda: rc.roialign_compact_plain(  # noqa: E731
-        levels, bat, total, pos, fms_main)
-    library = grid_sample_call(args)
-    kern()
-    plain()
-    library()
-    kernel_ms = cuda_ms(kern, 50)
-    plain_ms = cuda_ms(plain, 5)
-    library_ms = cuda_ms(library, 20)
-    kernel_ms_2 = cuda_ms(kern, 50)
-    bound = kernel_bound_ms(args)
+    mono = lambda: model(image, meta_b, anchors)  # noqa: E731
+    mono()
+    step_m = cuda_ms(mono, reps)
+    vols_m = BATCH / (step_m / 1e3)
     stages = stage_ms(model, image, meta_b, anchors, (cls_chunk, mask_chunk))
+    stages_m = monolithic_stage_ms(model, image, meta_b, anchors)
     phase("time", f"adaptive {vols:.4f} vol/s ({step_ms:.2f} ms per batch of "
           f"{BATCH}, CUDA events; host wall {[round(w, 4) for w in wall]} s); "
-          f"kernel {kernel_ms:.4f} / {kernel_ms_2:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, grid_sample {library_ms:.4f} ms, bound "
-          f"{bound:.4f} ms (N={pos.shape[0]} total={int(total)}); "
           f"stages ms {stages}")
+    phase("time", f"monolithic {vols_m:.4f} vol/s ({step_m:.2f} ms per "
+          f"batch of {BATCH}, CUDA events); stages ms {stages_m}")
+
+    # The classifier stage's parts besides the fused kernel: the slab
+    # kernel on the path's own fallback rows, and the fallback conv3d_fc,
+    # which runs over every row as in JAX.
+    from m3d_torch.ops.conv3d import conv3d_fc
+
+    slab_main_ms = cuda_ms(lambda: rs.roialign_slab(*args_slab_main), 20)
+    slab_main_bound = slab_bound(args_slab_main)
+    pooled = rs.roialign_slab(*args_slab_main)
+    fb_ms = cuda_ms(lambda: conv3d_fc(pooled, conv1.weight,
+                                      out_dtype=torch.float32), 5)
+    del pooled
+    phase("time", f"monolithic classifier parts: slab kernel on the path's "
+          f"{int(args_slab_main[-1][1])} fallback rows {slab_main_ms:.4f} ms "
+          f"(bound {slab_main_bound[0]:.4f} ms, {slab_main_bound[2]}); "
+          f"fallback conv3d_fc over all {args_slab_main[0].shape[0]} rows "
+          f"(float32) {fb_ms:.4f} ms")
+
+    levels, bat, total, pos, fms_main = args
+    pad_levels, pad_pos, pad_fms, pad_n = args_pad
+    n_pad = pad_pos.shape[0]
+    pad_bat = torch.div(torch.arange(n_pad, device=dev, dtype=torch.int32),
+                        pad_n, rounding_mode="floor")
+    pad_total = torch.tensor(n_pad, dtype=torch.int32, device=dev)
+    pad_as_compact = (pad_levels, pad_bat, pad_total, pad_pos, pad_fms)
+    timed = {
+        # name: (kernel, plain, library, bound (ms, by), kernel reps)
+        "roialign_compact": (
+            lambda: rc.roialign_compact(*args),
+            lambda: rc.roialign_compact_plain(levels, bat, total, pos,
+                                              fms_main),
+            grid_sample_call(args), kernel_bound_ms(args), 50),
+        "roialign_fc (kron)": (
+            lambda: rf.roialign_fc(*args_fc),
+            lambda: rf.roialign_fc_plain(*args_fc),
+            fc_library_call(args_fc), slab_bound(args_fc, fc=True), 20),
+        "roialign_padded": (
+            lambda: rc.roialign_padded(*args_pad),
+            lambda: rc.roialign_compact_plain(*pad_as_compact),
+            grid_sample_call(pad_as_compact),
+            kernel_bound_ms(pad_as_compact), 50),
+        "roialign_slab": (
+            lambda: rs.roialign_slab(*args_slab),
+            lambda: rs.roialign_slab_plain(*args_slab),
+            grid_sample_call(slab_rows_in_bounds(args_slab)),
+            slab_bound(args_slab), 20),
+        # kernel 5 on its own call's inputs: the forced-fallback split,
+        # run with kernel="separable"
+        "roialign_fc (separable)": (
+            lambda: rf.roialign_fc(*args_fc_forced),
+            lambda: rf.roialign_fc_plain(*args_fc_forced),
+            fc_library_call(args_fc_forced),
+            slab_bound(args_fc_forced, fc=True), 20),
+    }
+    sources = {"roialign_compact": "m3d_torch/csrc/roialign_compact.cu",
+               "roialign_fc (kron)": "m3d_torch/csrc/roialign_fc.cu",
+               "roialign_padded": "m3d_torch/csrc/roialign_compact.cu",
+               "roialign_slab": "m3d_torch/csrc/roialign_slab.cu",
+               "roialign_fc (separable)": "m3d_torch/csrc/roialign_fc.cu"}
+    kernels = []
+    for name, (kern, plain, library, (bound_ms, bound_by, unit), kreps) in \
+            timed.items():
+        kern()
+        plain()
+        library()
+        kernel_ms = cuda_ms(kern, kreps)
+        plain_ms = cuda_ms(plain, 2)
+        library_ms = cuda_ms(library, 10)
+        kernel_ms_2 = cuda_ms(kern, kreps)
+        phase("time", f"{name}: kernel {kernel_ms:.4f} / {kernel_ms_2:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, library {library_ms:.4f} ms, "
+              f"bound {bound_ms:.4f} ms ({bound_by}: {unit}), launches "
+              f"{launches[name]}")
+        kernels.append({
+            "name": name, "route": "cuda", "source": sources[name],
+            "replaces": REPLACES[name], "launches": launches[name],
+            "max_abs_err": max(errs[name]), "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms})
+        if name == "roialign_fc (separable)":
+            kernels[-1]["same_launch_as"] = "roialign_fc (kron)"
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{smi}] peak memory {peak:.2f} GiB", flush=True)
 
-    summary = {"kernels": [{
-        "name": "roialign_compact",
-        "route": "cuda",
-        "source": "m3d_torch/csrc/roialign_compact.cu",
-        "replaces": REPLACES,
-        "launches": launches,
-        "max_abs_err": max([err_main] + list(errs.values())),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": "bytes",
-        "library_ms": library_ms,
-    }]}
-    print(json.dumps(summary), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -59,11 +59,19 @@ class ClassifierHead(nn.Module):
         y = x.reshape(x.shape[0], -1).to(dtype) @ w
         return y + conv.bias.to(dtype)
 
-    def forward(self, x):
+    def forward(self, x, from_fc: bool = False):
         """x: [B, T, p, p, p, C] -> (logits [B, T, K], probs [B, T, K],
-        bbox [B, T, K, 6])."""
+        bbox [B, T, K, 6]).
+
+        from_fc=True: ``x`` is [B, T, F], the conv1 output with its bias
+        already added (the fused ROIAlign + FC entry's float32 result plus
+        the bias, as MaskRCNN.classify_rois computes it); it is cast to the
+        compute dtype and conv1 is skipped."""
         b, t = x.shape[:2]
-        x = self.conv1_as_matmul(x.reshape(b * t, *x.shape[2:]))
+        if from_fc:
+            x = x.reshape(b * t, x.shape[-1]).to(self.dtype or x.dtype)
+        else:
+            x = self.conv1_as_matmul(x.reshape(b * t, *x.shape[2:]))
         x = F.relu(self.mrcnn_class_bn1(x))
         x = x.reshape(b * t, 1, 1, 1, -1)
         x = F.relu(self.mrcnn_class_bn2(self.mrcnn_class_conv2(x)))

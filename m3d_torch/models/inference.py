@@ -11,6 +11,8 @@ JAX gates chunks with ``lax.cond`` on a traced count. Eager torch instead
 reads the live count on the host once per stage (one device->host sync for
 the classifier stage, one for the mask stage) and launches only the live
 chunks. The mask-stage ROIAlign kernel itself reads ``total`` on the device.
+A chunk of None/0 runs that stage monolithically (the model's
+``classify_rois`` / ``mask_rois``), with no host sync for it.
 """
 
 from __future__ import annotations
@@ -126,13 +128,10 @@ def adaptive_inference(model: MaskRCNN, image, image_meta, anchors, *,
 
     image [B, H, W, D, C], image_meta [B, META] and anchors [A, 6] may be
     numpy arrays or tensors; they are moved to ``device``, where the model
-    must be. Chunk arguments must be set (the monolithic graph is not ported
-    yet). Returns the same dict as m3d's ``adaptive_inference``.
+    must be. A chunk of None/0 runs that stage monolithically, over every
+    padded slot (``MaskRCNN.classify_rois`` / ``mask_rois``), as JAX does.
+    Returns the same dict as m3d's ``adaptive_inference``.
     """
-    if not classifier_chunk or not mask_chunk:
-        raise NotImplementedError(
-            "only the chunked adaptive path is ported; pass both chunks "
-            "(default_chunks(model))")
     image, image_meta, anchors = (torch.as_tensor(x, device=device)
                                   for x in (image, image_meta, anchors))
     image_meta = image_meta.float()
@@ -146,15 +145,23 @@ def adaptive_inference(model: MaskRCNN, image, image_meta, anchors, *,
         prop_valid = prop_valid[:, :cap]
     mrcnn_feats = list(feats[:4])
 
-    cls_logits, cls_probs, cls_bbox = compacted_classifier_stage(
-        model, proposals, prop_valid, image_meta, mrcnn_feats,
-        chunk=int(classifier_chunk))
+    if classifier_chunk:
+        _, cls_probs, cls_bbox = compacted_classifier_stage(
+            model, proposals, prop_valid, image_meta, mrcnn_feats,
+            chunk=int(classifier_chunk))
+    else:
+        _, cls_probs, cls_bbox = model.classify_rois(proposals, image_meta,
+                                                     mrcnn_feats)
     detections, det_valid = refine_detections_batch(
         proposals, cls_probs, cls_bbox, image_meta, model.bbox_std_dev,
         model.detection_min_confidence, model.detection_nms_threshold,
         model.detection_max_instances, nms_xy_only=model.detection_nms_xy_only)
-    masks = compacted_mask_stage(model, detections, det_valid, image_meta,
-                                 mrcnn_feats, chunk=int(mask_chunk))
+    if mask_chunk:
+        masks = compacted_mask_stage(model, detections, det_valid,
+                                     image_meta, mrcnn_feats,
+                                     chunk=int(mask_chunk))
+    else:
+        masks = model.mask_rois(detections[..., :6], image_meta, mrcnn_feats)
     return {
         "detections": detections,
         "detections_valid": det_valid,

@@ -1,13 +1,14 @@
-"""Assembled 3D Mask R-CNN (port of m3d/models/mask_rcnn.py, inference
-stages of the adaptive path).
+"""Assembled 3D Mask R-CNN (port of m3d/models/mask_rcnn.py, inference).
 
 One ``nn.Module`` owns every parameter under the flax tree's names
 (``resnet``, ``fpn``, ``rpn``, ``classifier``, ``mask_head``), so a flax
 checkpoint loads by name (m3d_torch/checkpoints.py). Its methods are the
 composable stages m3d_torch/models/inference.py chains: ``extract_features``,
 ``rpn_forward``, ``propose``, ``classify_rois_flat``, ``mask_align_compact``
-and ``apply_mask_head``. The monolithic graph (``classify_rois``,
-``mask_rois``, ``__call__``) is not ported yet.
+and ``apply_mask_head``; and the monolithic graph's stages,
+``classify_rois`` (fused ROIAlign + FC kernel) and ``mask_rois`` (padded
+ROIAlign kernel), which ``forward`` (JAX's ``__call__``) chains over every
+padded slot.
 """
 
 from __future__ import annotations
@@ -16,11 +17,15 @@ import torch
 from torch import nn
 
 from m3d_torch.models.backbone import ResNet3D
+from m3d_torch.models.detection import refine_detections_batch
 from m3d_torch.models.fpn import FPN3D
 from m3d_torch.models.heads import ClassifierHead, MaskHead
 from m3d_torch.models.proposal import generate_proposals
 from m3d_torch.models.rpn_head import RPNHead
-from m3d_torch.ops.roialign3d import (pyramid_roi_align_compact,
+from m3d_torch.ops.roialign3d import (fused_classifier_ok,
+                                      pyramid_roi_align_auto,
+                                      pyramid_roi_align_compact,
+                                      pyramid_roi_align_fc,
                                       pyramid_roi_align_flat)
 
 
@@ -156,3 +161,62 @@ class MaskRCNN(nn.Module):
     def apply_mask_head(self, aligned):
         """Mask-head convolutions on pre-aligned [B, T, m, m, m, C]."""
         return self.mask_head(aligned)
+
+    def classify_rois(self, rois, image_meta, mrcnn_feature_maps):
+        """Classifier stage over padded [B, N, 6] ROIs. Where the fused
+        ROIAlign + FC entry takes the features (always on the card), the
+        pooled tensor is never written: conv1's float32 output gets its
+        bias in float32 and the head runs ``from_fc``. Otherwise padded
+        ROIAlign and the whole head. Returns ([B, N, K] logits, probs,
+        [B, N, K, 6] deltas)."""
+        feats = list(mrcnn_feature_maps)
+        if fused_classifier_ok(self.pool_size, feats):
+            conv = self.classifier.mrcnn_class_conv1
+            fc = pyramid_roi_align_fc(rois, image_meta, feats,
+                                      self.pool_size, conv.weight,
+                                      kernel="kron")
+            return self.classifier(fc + conv.bias.float(), from_fc=True)
+        aligned = pyramid_roi_align_auto(rois, image_meta, feats,
+                                         self.pool_size)
+        return self.classifier(aligned)
+
+    def mask_rois(self, rois, image_meta, mrcnn_feature_maps):
+        """Mask stage over every padded [B, N, 6] slot: padded ROIAlign
+        (the kernel on the card) and the mask head."""
+        aligned = pyramid_roi_align_auto(rois, image_meta,
+                                         list(mrcnn_feature_maps),
+                                         self.mask_pool_size)
+        return self.mask_head(aligned)
+
+    @torch.no_grad()
+    def forward(self, image, image_meta, anchors):
+        """Monolithic inference (JAX ``MaskRCNN.__call__``): every padded
+        proposal and detection slot is computed. image [B, H, W, D, C],
+        image_meta [B, META] and anchors [A, 6] are tensors on the model's
+        device. Returns the same dict as JAX's."""
+        feats = self.extract_features(image.float())
+        _, probs, deltas = self.rpn_forward(list(feats))
+        proposals, prop_valid = self.propose(probs, deltas, anchors)
+        cap = int(self.head_max_rois or 0)
+        if cap and cap < proposals.shape[1]:
+            proposals = proposals[:, :cap]
+            prop_valid = prop_valid[:, :cap]
+        image_meta = image_meta.float()
+        mrcnn_feats = list(feats[:4])
+        _, cls_probs, cls_bbox = self.classify_rois(proposals, image_meta,
+                                                    mrcnn_feats)
+        detections, det_valid = refine_detections_batch(
+            proposals, cls_probs, cls_bbox, image_meta, self.bbox_std_dev,
+            self.detection_min_confidence, self.detection_nms_threshold,
+            self.detection_max_instances,
+            nms_xy_only=self.detection_nms_xy_only)
+        masks = self.mask_rois(detections[..., :6], image_meta, mrcnn_feats)
+        return {
+            "detections": detections,
+            "detections_valid": det_valid,
+            "mrcnn_masks": masks,
+            "mrcnn_probs": cls_probs,
+            "mrcnn_bbox": cls_bbox,
+            "proposals": proposals,
+            "proposals_valid": prop_valid,
+        }

@@ -92,3 +92,18 @@ class ZConv(nn.Module):
                      tuple(lo for lo, _ in pads) if sym else 0,
                      self.dilation)
         return to_channels_last(y)
+
+
+def conv3d_fc(x, weight, out_dtype=None):
+    """VALID conv whose kernel extent equals the input extent: one matmul
+    (port of m3d.ops.conv3d.conv3d_fc).
+
+    x: [N, h, w, d, Cin]; weight: torch layout [Cout, Cin, h, w, d], cast to
+    x's dtype first as the JAX caller casts its kernel. The product
+    accumulates in float32 and is rounded once, to ``out_dtype`` (default
+    x's dtype). Returns [N, 1, 1, 1, Cout].
+    """
+    n = x.shape[0]
+    w = weight.to(x.dtype).permute(2, 3, 4, 1, 0).reshape(-1, weight.shape[0])
+    y = x.reshape(n, -1).float() @ w.float()
+    return y.to(out_dtype or x.dtype).reshape(n, 1, 1, 1, -1)

@@ -1,5 +1,7 @@
-"""Pyramid 3D ROIAlign over flat ROI lists (port of the flat/compact subset
-of m3d/ops/roialign3d.py).
+"""Pyramid 3D ROIAlign (port of m3d/ops/roialign3d.py): flat, compact and
+padded gather entries, the kernel entries of the monolithic graph
+(``pyramid_roi_align_pallas``, ``pyramid_roi_align_auto``) and the fused
+ROIAlign + classifier FC (``pyramid_roi_align_fc``, ``_flat``).
 
 Sampling follows TF crop_and_resize, generalized to 3-D:
 
@@ -16,8 +18,13 @@ from __future__ import annotations
 import torch
 
 from m3d_torch.image_meta import parse_image_meta
+from m3d_torch.ops.conv3d import conv3d_fc
 from m3d_torch.ops.roialign_compact import (flatten_pyramid, roialign_compact,
-                                            trilinear_gather)
+                                            roialign_padded, trilinear_gather)
+from m3d_torch.ops.roialign_fc import conv1_weight_kf, roialign_fc
+from m3d_torch.ops.roialign_slab import roialign_slab
+
+Z_ALIGN = 8  # slab z origins are 8-aligned, as the JAX entries place them
 
 
 def axis_positions(lo, hi, size, crop: int):
@@ -129,3 +136,278 @@ def pyramid_roi_align_compact(boxes, batch_idx, total, image_meta,
     fms = [fm.contiguous() for fm in feature_maps]
     return roialign_compact(levels.contiguous(), batch_idx.contiguous(),
                             total, pos, fms)
+
+
+# Padded [B, N] entries and the slab contract ------------------------------
+
+def axis_slab_weights(pos, dim, slab: int, align: int = 1, origin_dim=None):
+    """Per-axis slab origin and interpolation weights (port of
+    m3d.ops.roialign3d._axis_slab_weights).
+
+    pos: [N, p] sample positions in level coordinates; dim: [N] level
+    extent; origin_dim: [N] extent used to place the slab (the padded
+    extent), default ``dim``. Returns (origin [N] int32, W [N, p, slab]
+    float32) with ``out_i = sum_s W[i, s] * F[origin + s]`` the clamped
+    linear interpolation with zero extrapolation (exact when the span fits
+    the slab).
+    """
+    dim = dim.float()[:, None]
+    odim = dim[:, 0] if origin_dim is None else origin_dim.float()
+    valid = (pos >= 0.0) & (pos <= dim - 1.0)
+    pos_c = torch.minimum(torch.clamp_min(pos, 0.0), dim - 1.0)
+    top = torch.clamp_min(odim - slab, 0.0)
+    origin = torch.minimum(
+        torch.clamp_min(torch.floor(pos_c.min(dim=1).values), 0.0), top)
+    if align > 1:
+        origin = torch.floor(origin / align) * align
+        origin = torch.minimum(origin, torch.floor(top / align) * align)
+    rel = (pos_c - origin[:, None]).clamp(0.0, slab - 1.0)
+    i0 = torch.floor(rel)
+    frac = rel - i0
+    max_col = torch.clamp_max(dim - 1.0 - origin[:, None], float(slab - 1))
+    i1 = torch.minimum(i0 + 1.0, max_col)
+    cols = torch.arange(slab, dtype=torch.float32, device=pos.device)
+    w0 = (cols == i0[..., None]).float() * (1.0 - frac)[..., None]
+    w1 = (cols == i1[..., None]).float() * frac[..., None]
+    w = (w0 + w1) * valid[..., None].float()
+    return origin.to(torch.int32), w
+
+
+def slab_sizes(feature_maps, cap_yx: int = 32, cap_z: int = 64):
+    """Per-axis slab extents (sy, sx, sz) from the level extents: the
+    largest extent on each axis, capped."""
+    return (min(cap_yx, max(fm.shape[1] for fm in feature_maps)),
+            min(cap_yx, max(fm.shape[2] for fm in feature_maps)),
+            min(cap_z, max(fm.shape[3] for fm in feature_maps)))
+
+
+def _slab_geometry(feature_maps, slab=None):
+    """(sy, sx, sz) of the exact-coverage slab, z enlarged and 8-aligned
+    as the JAX entries do, and the [L, 3] level extents the JAX entries pad
+    the levels to (origins are placed against those)."""
+    if slab is None:
+        slab = slab_sizes(feature_maps)
+    elif isinstance(slab, int):
+        slab = (slab,) * 3
+    s_y, s_x, slab_z = (int(v) for v in slab)
+    max_d = max(fm.shape[3] for fm in feature_maps)
+    if slab_z < max_d:
+        slab_z += Z_ALIGN
+    slab_z += (-slab_z) % Z_ALIGN
+    padded = []
+    for fm in feature_maps:
+        hl, wl, dl = fm.shape[1:4]
+        dz_pad = max(0, slab_z - dl) + (-max(dl, slab_z)) % Z_ALIGN
+        padded.append((max(hl, s_y), max(wl, s_x), dl + dz_pad))
+    return (s_y, s_x, slab_z), torch.tensor(
+        padded, dtype=torch.long, device=feature_maps[0].device)
+
+
+def _cells_needed(pos, dim):
+    pc = torch.minimum(torch.clamp_min(pos, 0.0), dim[:, None] - 1.0)
+    return (torch.floor(pc.max(dim=1).values)
+            - torch.floor(pc.min(dim=1).values)).to(torch.int32) + 2
+
+
+def _slab_weights(pos, rd, pdims, slab):
+    """Origins [N, 3] int32 and (wy, wx, wz) for one slab size."""
+    out = [axis_slab_weights(pos[a], rd[:, a], slab[a],
+                             align=Z_ALIGN if a == 2 else 1,
+                             origin_dim=pdims[:, a]) for a in range(3)]
+    origins = torch.stack([o for o, _ in out], dim=1).contiguous()
+    return (origins, *(w.contiguous() for _, w in out))
+
+
+def _flat_rows(boxes, image_meta, num_levels):
+    """[B, N, 6] boxes -> sanitized flat boxes [B*N, 6], levels and image
+    indices [B*N] int32 (image-major)."""
+    bsz, n = boxes.shape[:2]
+    batch_f = torch.arange(bsz, dtype=torch.int32,
+                           device=boxes.device).repeat_interleave(n)
+    boxes_f, levels_f = sanitize_flat_rois(boxes.reshape(bsz * n, 6), batch_f,
+                                           image_meta, num_levels)
+    return boxes_f, levels_f, batch_f
+
+
+def pyramid_roi_align(boxes, image_meta, feature_maps, pool_size):
+    """Gather-path ROIAlign over padded [B, N, 6] boxes (port of the
+    trilinear m3d.ops.roialign3d.pyramid_roi_align): the CPU route and the
+    plain reference of the kernel entries. Returns [B, N, p, p, p, C] in
+    the features' dtype (float32 math), NaN-scrubbed."""
+    p = _pool_size(pool_size)
+    bsz, n = boxes.shape[:2]
+    boxes_f, levels_f, batch_f = _flat_rows(boxes, image_meta,
+                                            len(feature_maps))
+    out = gather_flat_sanitized(boxes_f, levels_f, batch_f,
+                                list(feature_maps), p)
+    return out.reshape(bsz, n, *out.shape[1:])
+
+
+def pyramid_roi_align_pallas(boxes, image_meta, feature_maps, pool_size,
+                             slab=None):
+    """Kernel ROIAlign over padded [B, N, 6] boxes (port of
+    m3d.ops.roialign3d.pyramid_roi_align_pallas).
+
+    ``slab=None``: every row through the padded kernel (TPU kernel
+    ``_kernel_vmem``; on the TPU only for pyramids that fit its VMEM, but
+    the Hopper kernel is exact at any extent, as is the tiered branch, so
+    the function is the same). An explicit ``slab``: the span-tiered
+    branch, each tier one slab-kernel launch over its (offset, count)
+    range of the span-sorted rows. Returns [B, N, p, p, p, C] in the
+    features' dtype.
+    """
+    p = _pool_size(pool_size)
+    fms = [fm.contiguous() for fm in feature_maps]
+    bsz, n = boxes.shape[:2]
+    boxes_f, levels_f, batch_f = _flat_rows(boxes.to(fms[0].device),
+                                            image_meta, len(fms))
+    if slab is None:
+        _, pos = _level_positions(boxes_f, levels_f, fms, p)
+        out = roialign_padded(levels_f.contiguous(),
+                              torch.stack(pos, dim=1).contiguous(), fms, n)
+        return out.reshape(bsz, n, *out.shape[1:])
+    out = _tiered_slab(boxes_f, levels_f, batch_f, fms, p, slab)
+    out = torch.where(torch.isfinite(out), out, out.new_zeros(()))
+    return out.reshape(bsz, n, *out.shape[1:])
+
+
+def _tiered_slab(boxes_f, levels_f, batch_f, fms, p, slab):
+    """The span-tiered branch of pyramid_roi_align_pallas over flat rows:
+    smaller slab tiers for rows whose sample span fits them, the full slab
+    for the rest; counts and offsets stay on the device."""
+    (s_y, s_x, slab_z), pdims_lut = _slab_geometry(fms, slab)
+    tiers = []
+    for ty, tx, tz in ((8, 8, 16), (16, 16, 24)):
+        if ty < s_y or tx < s_x or tz < slab_z:
+            tiers.append((min(ty, s_y), min(tx, s_x), min(tz, slab_z)))
+    tiers.append((s_y, s_x, slab_z))
+    rd, pos = _level_positions(boxes_f, levels_f, fms, p)
+    rdf = rd.float()
+    need = [_cells_needed(pos[a], rdf[:, a]) for a in range(3)]
+    need[2] = need[2] + (Z_ALIGN - 1)
+    tier_id = torch.full_like(levels_f, len(tiers) - 1)
+    for t in range(len(tiers) - 2, -1, -1):
+        fits = ((need[0] <= tiers[t][0]) & (need[1] <= tiers[t][1])
+                & (need[2] <= tiers[t][2]))
+        tier_id = torch.where(fits, torch.full_like(tier_id, t), tier_id)
+    order = torch.argsort(tier_id, stable=True)
+    inv = torch.argsort(order, stable=True)
+    tier_s = tier_id[order]
+    levels_s = levels_f[order].contiguous()
+    batch_s = batch_f[order].contiguous()
+    rd_s = rd[order]
+    pos_s = [q[order] for q in pos]
+    counts = torch.stack([(tier_id == t).sum()
+                          for t in range(len(tiers))]).to(torch.int32)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    pdims = pdims_lut[levels_s.long()]
+    out = None
+    for t, tier in enumerate(tiers):
+        origins, wy, wx, wz = _slab_weights(pos_s, rd_s, pdims, tier)
+        bounds = torch.stack([offsets[t], counts[t]]).contiguous()
+        part = roialign_slab(levels_s, batch_s, origins, wy, wx, wz, fms,
+                             bounds)
+        out = part if out is None else torch.where(
+            (tier_s == t)[:, None, None, None, None], part, out)
+    return out[inv]
+
+
+def fused_classifier_ok(pool_size, feature_maps) -> bool:
+    """True when the fused ROIAlign+FC entry serves the classifier stage: a
+    cubic pool over four levels. On a card that is the whole rule (the
+    kernel raises for features it cannot take); on the CPU its plain
+    version also needs bf16 or float32 features with an even C."""
+    if isinstance(pool_size, (tuple, list)) and len(set(pool_size)) != 1:
+        return False
+    if len(feature_maps) != 4:
+        return False
+    f0 = feature_maps[0]
+    return f0.device.type == "cuda" or (
+        f0.dtype in (torch.bfloat16, torch.float32) and f0.shape[-1] % 2 == 0)
+
+
+def pyramid_roi_align_auto(boxes, image_meta, feature_maps, pool_size):
+    """Padded [B, N] ROIAlign dispatch: the padded kernel on a CUDA tensor,
+    the plain gather (``pyramid_roi_align``) on a CPU tensor. The TPU cost
+    model of the JAX dispatch is not carried over."""
+    if feature_maps[0].device.type == "cuda":
+        return pyramid_roi_align_pallas(boxes, image_meta, feature_maps,
+                                        pool_size)
+    return pyramid_roi_align(boxes, image_meta, feature_maps, pool_size)
+
+
+def pyramid_roi_align_fc(boxes, image_meta, feature_maps, pool_size,
+                         fc_weight, fc_slab_cap=(16, 16, 24),
+                         kernel: str = "separable"):
+    """Pyramid ROIAlign fused with the pool-cube FC conv over padded
+    [B, N, 6] boxes (port of m3d.ops.roialign3d.pyramid_roi_align_fc).
+
+    fc_weight: the conv weight in torch layout [F, C, p, p, p]. Returns
+    [B, N, F] float32, bias not applied. ``kernel`` "kron" and "separable"
+    name the two TPU formulations of one function: both are the same
+    launch here.
+    """
+    bsz, n = boxes.shape[:2]
+    fms = [fm.contiguous() for fm in feature_maps]
+    boxes_f, levels_f, batch_f = _flat_rows(boxes.to(fms[0].device),
+                                            image_meta, len(fms))
+    out = _roi_align_fc_flat_core(boxes_f, levels_f, batch_f, fms,
+                                  _pool_size(pool_size), fc_weight,
+                                  fc_slab_cap, kernel)
+    return out.reshape(bsz, n, -1)
+
+
+def pyramid_roi_align_fc_flat(boxes, batch_idx, image_meta, feature_maps,
+                              pool_size, fc_weight, fc_slab_cap=(16, 16, 24),
+                              kernel: str = "kron"):
+    """pyramid_roi_align_fc over a flat ROI list ([N, 6] boxes, [N] image
+    indices). Returns [N, F] float32, bias not applied."""
+    fms = [fm.contiguous() for fm in feature_maps]
+    batch_idx = batch_idx.to(device=fms[0].device, dtype=torch.int32)
+    boxes_f, levels_f = sanitize_flat_rois(boxes.to(fms[0].device), batch_idx,
+                                           image_meta, len(fms))
+    return _roi_align_fc_flat_core(boxes_f, levels_f, batch_idx, fms,
+                                   _pool_size(pool_size), fc_weight,
+                                   fc_slab_cap, kernel)
+
+
+def _roi_align_fc_flat_core(boxes_f, levels_f, batch_f, fms, p, fc_weight,
+                            fc_slab_cap, kernel):
+    """Rows whose sample span fits ``fc_slab = min(fc_slab_cap, slab)`` go
+    first, through the fused kernel with bounds (0, n_fit); the rest
+    through the slab kernel at the exact-coverage slab with bounds
+    (n_fit, N - n_fit) and ``conv3d_fc`` (over all N rows, as in JAX).
+    The two are combined by row index and un-sorted. ``n_fit`` stays on
+    the device: no host sync."""
+    if kernel not in ("kron", "separable"):
+        raise ValueError(f"unknown fused kernel {kernel!r}")
+    n_flat = boxes_f.shape[0]
+    slab, pdims_lut = _slab_geometry(fms)
+    fc_slab = tuple(min(cap, s) for cap, s in zip(fc_slab_cap, slab))
+    rd, pos = _level_positions(boxes_f, levels_f, fms, p)
+    rdf = rd.float()
+    fits = ((_cells_needed(pos[0], rdf[:, 0]) <= fc_slab[0])
+            & (_cells_needed(pos[1], rdf[:, 1]) <= fc_slab[1])
+            & (_cells_needed(pos[2], rdf[:, 2]) + (Z_ALIGN - 1) <= fc_slab[2]))
+    order = torch.sort((~fits).to(torch.uint8), stable=True).indices
+    inv = torch.argsort(order, stable=True)
+    n_fit = fits.sum().to(torch.int32)
+    levels_s = levels_f[order].contiguous()
+    batch_s = batch_f[order].contiguous()
+    rd_s = rd[order]
+    pos_s = [q[order] for q in pos]
+    pdims = pdims_lut[levels_s.long()]
+    zero = torch.zeros((), dtype=torch.int32, device=n_fit.device)
+
+    wk = conv1_weight_kf(fc_weight, fms[0].dtype)
+    out_fc = roialign_fc(levels_s, batch_s,
+                         *_slab_weights(pos_s, rd_s, pdims, fc_slab), fms, wk,
+                         torch.stack([zero, n_fit]).contiguous())
+    pooled = roialign_slab(levels_s, batch_s,
+                           *_slab_weights(pos_s, rd_s, pdims, slab), fms,
+                           torch.stack([n_fit, n_flat - n_fit]).contiguous())
+    out_fb = conv3d_fc(pooled, fc_weight,
+                       out_dtype=torch.float32).reshape(n_flat, -1)
+    idx = torch.arange(n_flat, device=n_fit.device)
+    out = torch.where((idx < n_fit)[:, None], out_fc, out_fb)[inv]
+    return torch.where(torch.isfinite(out), out, out.new_zeros(()))

@@ -18,27 +18,20 @@ does (m3d_torch.ops.roialign3d.pyramid_roi_align_compact prepares them):
 It returns [N, p, p, p, C] in the features' dtype, rows at or beyond
 ``total`` exactly zero. On a CPU tensor it runs ``roialign_compact_plain``;
 on a CUDA tensor it launches the kernel or raises. The library is built
-with nvcc into m3d_torch/_build/ on first use (plain C ABI, loaded with
-ctypes) and rebuilt when the source changes.
+with nvcc into m3d_torch/_build/ on first use (m3d_torch/ops/cuda_build.py)
+and rebuilt when the source changes.
+
+``roialign_padded`` is the padded entry (TPU kernel ``_kernel_vmem``, entry
+``pallas_pyramid_roi_align_vmem``): the same kernel over image-major rows
+with every row live.
 """
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-
 import torch
 
-SOURCE = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc",
-                      "roialign_compact.cu")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_ROWS = 65535  # grid.y limit
+from m3d_torch.ops.cuda_build import (MAX_ROWS, CudaLibrary, I, LaunchCount,
+                                      P, on_card, stream_of)
 
 
 def trilinear_gather(flat, base, dims, strides, positions):
@@ -124,63 +117,10 @@ def roialign_compact_plain(levels, batch_idx, total, pos, feature_maps):
     return out.to(feature_maps[0].dtype)
 
 
-class _Kernel:
-    """The built library and the wrapper's launch count."""
-
-    def __init__(self):
-        self.lib = None
-        self.launches = 0
-        self.build_seconds = None
-        self.build_log = ""
-
-
-KERNEL = _Kernel()
-
-
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
-            return os.path.join(cand, "bin", "nvcc")
-    found = shutil.which("nvcc")
-    if not found:
-        raise RuntimeError("nvcc not found (set CUDA_HOME)")
-    return found
-
-
-def build_library() -> str:
-    """Compile csrc/roialign_compact.cu with nvcc unless a library built
-    from the same source and flags exists. Returns the library path."""
-    with open(SOURCE, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    path = os.path.join(BUILD_DIR, f"roialign_compact_{tag}.so")
-    if os.path.exists(path):
-        return path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    KERNEL.build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{KERNEL.build_log}")
-    os.replace(tmp, path)
-    KERNEL.build_seconds = time.perf_counter() - t0
-    return path
-
-
-def load_library():
-    """Build (if needed) and load the kernel library; idempotent."""
-    if KERNEL.lib is None:
-        lib = ctypes.CDLL(build_library())
-        fn = lib.roialign_compact_launch
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
-                       + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        KERNEL.lib = lib
-    return KERNEL.lib
+LIB = CudaLibrary("roialign_compact", {
+    "roialign_compact_launch": [P] * 4 + [I] * 12 + [P] * 5 + [I] * 3 + [P]})
+KERNEL = LaunchCount()   # roialign_compact (TPU kernel _kernel_vmem_compact)
+PADDED = LaunchCount()   # roialign_padded (TPU kernel _kernel_vmem)
 
 
 def _check(levels, batch_idx, total, pos, feature_maps):
@@ -215,29 +155,49 @@ def _check(levels, batch_idx, total, pos, feature_maps):
         raise ValueError(f"at most {MAX_ROWS} rows per launch, got {n}")
 
 
-def roialign_compact(levels, batch_idx, total, pos, feature_maps):
-    """Compact ROIAlign; see the module docstring for the contract."""
-    _check(levels, batch_idx, total, pos, feature_maps)
-    if pos.device.type == "cpu":
-        return roialign_compact_plain(levels, batch_idx, total, pos,
-                                      feature_maps)
-    if pos.device.type != "cuda":
-        raise RuntimeError(f"no compact ROIAlign kernel for {pos.device}")
+def _launch(levels, batch_idx, total, pos, feature_maps, count):
+    """Launch the kernel (no launch for zero rows); adds to ``count`` only
+    where it launches."""
     n, _, p = pos.shape
     f0 = feature_maps[0]
     c = f0.shape[-1]
     out = torch.empty((n, p, p, p, c), dtype=f0.dtype, device=pos.device)
     if n == 0:
         return out
-    lib = load_library()
     dims = [int(v) for fm in feature_maps for v in fm.shape[1:4]]
     with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream(pos.device).cuda_stream
-        err = lib.roialign_compact_launch(
-            *(fm.data_ptr() for fm in feature_maps), *dims,
-            levels.data_ptr(), batch_idx.data_ptr(), total.data_ptr(),
-            pos.data_ptr(), out.data_ptr(), n, p, c, stream)
-    if err != 0:
-        raise RuntimeError(f"roialign_compact launch failed: CUDA error {err}")
-    KERNEL.launches += 1
+        LIB.call("roialign_compact_launch",
+                 *(fm.data_ptr() for fm in feature_maps), *dims,
+                 levels.data_ptr(), batch_idx.data_ptr(), total.data_ptr(),
+                 pos.data_ptr(), out.data_ptr(), n, p, c, stream_of(pos))
+    count.launches += 1
     return out
+
+
+def roialign_compact(levels, batch_idx, total, pos, feature_maps):
+    """Compact ROIAlign; see the module docstring for the contract."""
+    _check(levels, batch_idx, total, pos, feature_maps)
+    if not on_card(pos.device, "compact ROIAlign"):
+        return roialign_compact_plain(levels, batch_idx, total, pos,
+                                      feature_maps)
+    return _launch(levels, batch_idx, total, pos, feature_maps, KERNEL)
+
+
+def roialign_padded(levels, pos, feature_maps, n_per_image: int):
+    """Padded pyramid ROIAlign (the function of the TPU kernel
+    ``_kernel_vmem``): image-major rows, ``n_per_image`` per image, every
+    row computed. The compact kernel computes it with ``batch_idx = i //
+    n_per_image`` and ``total = N`` (a device tensor: no host sync); its
+    launches count under ``PADDED``. Returns [N, p, p, p, C]."""
+    n = pos.shape[0]
+    dev = pos.device
+    if n_per_image <= 0 or n % n_per_image:
+        raise ValueError(f"{n} rows are not whole images of {n_per_image}")
+    batch_idx = torch.div(torch.arange(n, device=dev, dtype=torch.int32),
+                          n_per_image, rounding_mode="floor")
+    total = torch.full((), n, dtype=torch.int32, device=dev)
+    _check(levels, batch_idx, total, pos, feature_maps)
+    if not on_card(dev, "padded ROIAlign"):
+        return roialign_compact_plain(levels, batch_idx, total, pos,
+                                      feature_maps)
+    return _launch(levels, batch_idx, total, pos, feature_maps, PADDED)

@@ -225,6 +225,9 @@ def test_port_imports_without_jax_flax_msgpack_pandas():
         "import m3d_torch.models.inference, m3d_torch.checkpoints\n"
         "import m3d_torch.data.synthetic, m3d_torch.utils.metrics\n"
         "import m3d_torch.ops.roialign_compact, chip_smoke\n"
+        "import m3d_torch.ops.roialign_slab, m3d_torch.ops.roialign_fc\n"
+        "import m3d_torch.ops.roialign3d, m3d_torch.ops.cuda_build\n"
+        "import m3d_torch.models.mask_rcnn\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

@@ -1,8 +1,8 @@
-"""The compact ROIAlign wrapper (m3d_torch/ops/roialign_compact.py): its
-input checks and CPU path here, and its CUDA kernel against the plain
-PyTorch version on the card (marker ``cuda``; skips without a card). Imports
-no JAX, so the card's machine can run it:
-``python -m pytest -m cuda tests/test_torch_kernels.py``.
+"""The ROIAlign kernel wrappers (m3d_torch/ops/roialign_compact.py,
+roialign_slab.py, roialign_fc.py): their input checks and CPU path here,
+and each CUDA kernel against its plain PyTorch version on the card (marker
+``cuda``; skips without a card). Imports no JAX, so the card's machine can
+run it: ``python -m pytest -m cuda tests/test_torch_kernels.py``.
 """
 
 import numpy as np
@@ -11,6 +11,8 @@ import torch
 
 from m3d_torch.ops import roialign3d as TR
 from m3d_torch.ops import roialign_compact as TC
+from m3d_torch.ops import roialign_fc as TF
+from m3d_torch.ops import roialign_slab as TS
 
 T = torch.from_numpy
 
@@ -88,3 +90,223 @@ def test_kernel_matches_plain_on_card(total):
     ref = TC.roialign_compact_plain(*args[:4], [f.float() for f in args[4]])
     assert (got[total:] == 0).all()
     assert (got - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+def _slab_args(rng, n=12, c=8, dtype=torch.float32, random_weights=False,
+               slab=(16, 16, 16)):
+    """Slab-contract inputs: random boxes routed over all four levels,
+    origins and weights as the fused classifier computes them (or random
+    sparse weights)."""
+    feats = [T(f).to(dtype) for f in _pyramid(rng, 2, c, depth=16)]
+    levels = T((np.arange(n) % 4).astype(np.int32))
+    bat = T(np.sort(rng.randint(0, 2, n)).astype(np.int32))
+    lo = rng.uniform(0, 0.6, (n, 3)).astype(np.float32)
+    boxes = T(np.concatenate([lo, lo + rng.uniform(0.05, 0.4, (n, 3))], 1)
+              .astype(np.float32))
+    (sy, sx, sz), pdims = TR._slab_geometry(feats, slab)
+    rd, pos = TR._level_positions(boxes, levels, feats, 7)
+    origins, wy, wx, wz = TR._slab_weights(pos, rd, pdims[levels.long()],
+                                           (sy, sx, sz))
+    if random_weights:
+        wy, wx, wz = (T(rng.randn(*w.shape).astype(np.float32)
+                        * (rng.uniform(size=w.shape) < 0.3))
+                      for w in (wy, wx, wz))
+    return [levels, bat, origins, wy, wx, wz, feats]
+
+
+def _to_card(args):
+    return [a.cuda() if torch.is_tensor(a) else [f.cuda() for f in a]
+            for a in args]
+
+
+def test_padded_wrapper_uses_plain_version_on_cpu():
+    rng = np.random.RandomState(11)
+    levels, _, _, pos, feats = _kernel_args(rng, n=12)
+    before = TC.PADDED.launches, TC.KERNEL.launches
+    got = TC.roialign_padded(levels, pos, feats, 6)
+    bat = torch.arange(12, dtype=torch.int32) // 6
+    ref = TC.roialign_compact_plain(levels, bat, torch.tensor(12), pos, feats)
+    np.testing.assert_array_equal(got.numpy(), ref.numpy())
+    assert (TC.PADDED.launches, TC.KERNEL.launches) == before
+    with pytest.raises(ValueError):
+        TC.roialign_padded(levels, pos, feats, 5)
+
+
+def test_slab_and_fc_wrappers_use_plain_versions_on_cpu():
+    rng = np.random.RandomState(12)
+    args = _slab_args(rng)
+    bounds = torch.tensor([2, 7], dtype=torch.int32)
+    w = T(rng.randn(8, 8 * 7 ** 3).astype(np.float32))
+    before = TS.KERNEL.launches, TF.KERNEL.launches
+    got = TS.roialign_slab(*args, bounds)
+    np.testing.assert_array_equal(
+        got.numpy(), TS.roialign_slab_plain(*args, bounds).numpy())
+    fc = TF.roialign_fc(*args, w.t().contiguous(), bounds)
+    np.testing.assert_allclose(
+        fc.numpy(), (got.reshape(12, -1) @ w.t()).numpy(), rtol=1e-5,
+        atol=1e-5)
+    assert (TS.KERNEL.launches, TF.KERNEL.launches) == before
+    assert (got[:2] == 0).all() and (got[9:] == 0).all()
+    assert got[2:9].abs().sum() > 0
+
+
+@pytest.mark.parametrize("bad", ["levels_dtype", "bounds_shape", "w_dtype",
+                                 "w_shape", "three_levels", "origins_shape",
+                                 "wk_shape"])
+def test_slab_and_fc_wrappers_reject_bad_inputs(bad):
+    rng = np.random.RandomState(13)
+    args = _slab_args(rng)
+    bounds = torch.tensor([0, 12], dtype=torch.int32)
+    wk = torch.zeros(8 * 7 ** 3, 8)
+    if bad == "levels_dtype":
+        args[0] = args[0].long()
+    elif bad == "bounds_shape":
+        bounds = bounds[:1]
+    elif bad == "w_dtype":
+        args[3] = args[3].double()
+    elif bad == "w_shape":
+        args[4] = args[4][:5].contiguous()
+    elif bad == "three_levels":
+        args[6] = args[6][:3]
+    elif bad == "origins_shape":
+        args[2] = args[2][:, :2].contiguous()
+    if bad != "wk_shape":
+        with pytest.raises((TypeError, ValueError)):
+            TS.roialign_slab(*args, bounds)
+    else:
+        wk = wk[:-8]
+    with pytest.raises((TypeError, ValueError)):
+        TF.roialign_fc(*args, wk, bounds)
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run: python -m pytest -m cuda)")
+
+
+@pytest.mark.cuda
+def test_padded_kernel_matches_plain_on_card():
+    """The compact kernel through the padded entry (TPU kernel
+    _kernel_vmem): every row live. Tolerance one bf16 rounding."""
+    _needs_card()
+    rng = np.random.RandomState(14)
+    levels, _, _, pos, feats = _to_card(
+        _kernel_args(rng, c=256, dtype=torch.bfloat16))
+    before = TC.PADDED.launches
+    got = TC.roialign_padded(levels, pos, feats, 6).float()
+    assert TC.PADDED.launches == before + 1
+    bat = torch.arange(12, dtype=torch.int32, device="cuda") // 6
+    ref = TC.roialign_compact_plain(levels, bat, torch.tensor(12).cuda(), pos,
+                                    [f.float() for f in feats])
+    assert (got - ref).abs().max() <= 1e-2 * ref.abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounds", [(0, 0), (0, 1), (0, 12), (5, 4),
+                                    ("random", 12)])
+def test_slab_kernel_matches_plain_on_card(bounds):
+    """The slab kernel against its plain version (bf16 inputs, float32
+    reference; one bf16 rounding), rows outside bounds exactly zero."""
+    _needs_card()
+    rng = np.random.RandomState(15)
+    rand = bounds[0] == "random"
+    bounds = (0, 12) if rand else bounds
+    args = _to_card(_slab_args(rng, c=256, dtype=torch.bfloat16,
+                               random_weights=rand))
+    tb = torch.tensor(bounds, dtype=torch.int32, device="cuda")
+    got = TS.roialign_slab(*args, tb).float()
+    ref = TS.roialign_slab_plain(*args[:6], [f.float() for f in args[6]], tb)
+    lo, hi = bounds[0], bounds[0] + bounds[1]
+    assert (got[:lo] == 0).all() and (got[hi:] == 0).all()
+    assert (got - ref).abs().max() <= 1e-2 * max(ref.abs().max(), 1e-30)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bounds", [(0, 0), (0, 1), (0, 70), (9, 60),
+                                    ("random", 70)])
+def test_fc_kernel_matches_plain_on_card(bounds):
+    """The fused ROIAlign + FC kernel against its plain version: 70 rows
+    (two row tiles, the second ragged), F = 40 (one ragged column tile),
+    C = 256. Tolerance 1e-2 of the largest output: the pooled rows are
+    rounded to bf16 on both sides, the sums run in another order."""
+    _needs_card()
+    rng = np.random.RandomState(16)
+    rand = bounds[0] == "random"
+    bounds = (0, 70) if rand else bounds
+    args = _to_card(_slab_args(rng, n=70, c=256, dtype=torch.bfloat16,
+                               random_weights=rand))
+    w = torch.from_numpy(rng.randn(40, 256, 7, 7, 7).astype(np.float32)
+                         * 0.01).cuda()
+    wk = TF.conv1_weight_kf(w, torch.bfloat16)
+    tb = torch.tensor(bounds, dtype=torch.int32, device="cuda")
+    got = TF.roialign_fc(*args, wk, tb)
+    ref = TF.roialign_fc_plain(*args, wk, tb)
+    lo, hi = bounds[0], bounds[0] + bounds[1]
+    assert (got[:lo] == 0).all() and (got[hi:] == 0).all()
+    assert (got - ref).abs().max() <= 1e-2 * max(ref.abs().max(), 1e-30)
+
+
+def _zero_row_calls(on_gpu: bool):
+    """Each wrapper called with zero rows: (name, counter, call)."""
+    rng = np.random.RandomState(17)
+    dtype = torch.bfloat16 if on_gpu else torch.float32
+    levels, bat, _, pos, feats = _kernel_args(rng, c=64, dtype=dtype)
+    slab = _slab_args(rng, c=64, dtype=dtype)
+    if on_gpu:
+        levels, bat, pos, feats = _to_card([levels, bat, pos, feats])
+        slab = _to_card(slab)
+    dev = pos.device
+    empty = [t[:0].contiguous() for t in (levels, bat, pos)]
+    slab0 = [t[:0].contiguous() for t in slab[:6]] + [slab[6]]
+    bounds = torch.zeros(2, dtype=torch.int32, device=dev)
+    wk = torch.zeros(64 * 7 ** 3, 8, dtype=dtype, device=dev)
+    total = torch.zeros((), dtype=torch.int32, device=dev)
+    return {
+        "compact": (TC.KERNEL, lambda: TC.roialign_compact(
+            empty[0], empty[1], total, empty[2], feats)),
+        "padded": (TC.PADDED, lambda: TC.roialign_padded(
+            empty[0], empty[2], feats, 6)),
+        "slab": (TS.KERNEL, lambda: TS.roialign_slab(*slab0, bounds)),
+        "fc": (TF.KERNEL, lambda: TF.roialign_fc(*slab0, wk, bounds)),
+    }
+
+
+@pytest.mark.parametrize("name", ["compact", "padded", "slab", "fc"])
+def test_zero_rows_launch_nothing_and_count_nothing(name, monkeypatch):
+    """A wrapper on its kernel's route (forced here on CPU tensors) with
+    zero rows returns an empty result, launches nothing and leaves its
+    launch count as it was."""
+    for mod in (TC, TS, TF):
+        monkeypatch.setattr(mod, "on_card", lambda dev, what: True)
+    count, call = _zero_row_calls(on_gpu=False)[name]
+    before = count.launches
+    out = call()
+    assert out.shape[0] == 0
+    assert count.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["compact", "padded", "slab", "fc"])
+def test_zero_rows_count_nothing_on_card(name):
+    """On the card, a zero-row call leaves the launch count unchanged."""
+    _needs_card()
+    count, call = _zero_row_calls(on_gpu=True)[name]
+    before = count.launches
+    assert call().shape[0] == 0
+    assert count.launches == before
+
+
+@pytest.mark.cuda
+def test_fused_route_raises_on_card_for_features_it_cannot_take():
+    """On the card the classifier stage always takes the fused kernel: a
+    cubic pool is the whole rule, and features the kernel cannot take
+    (C % 64 != 0) raise instead of moving to another route."""
+    _needs_card()
+    rng = np.random.RandomState(18)
+    args = _to_card(_slab_args(rng, c=96, dtype=torch.bfloat16))
+    assert TR.fused_classifier_ok(7, args[6])
+    wk = torch.zeros(96 * 7 ** 3, 8, dtype=torch.bfloat16, device="cuda")
+    with pytest.raises(ValueError):
+        TF.roialign_fc(*args, wk,
+                       torch.tensor([0, 12], dtype=torch.int32,
+                                    device="cuda"))
