@@ -21,9 +21,15 @@ seconds:
               batches at the bench shapes, total in {0, 1, 37, N}; padded,
               slab and fused kernels vs theirs on random batches at the
               bench shapes, bounds (0, 0), (0, 1), (0, N) and an offset
+  nms         nms_3d at the hela configs' 30000 candidates (the blockwise
+              branch) on proposal-like boxes: the kept set must equal the
+              numpy oracle's exactly
   adaptive    adaptive_inference on the bench volumes; recall against GT
               must be >= 0.7 and the compact kernel must have been launched
-  captured    compact kernel vs plain version on the inputs of `adaptive`
+  captured    compact kernel vs plain version on the inputs of `adaptive`;
+              the fused kernel vs its plain version on the adaptive
+              classifier's first chunk (timing only: that path runs the
+              plain gather there)
   monolithic  MaskRCNN.forward on the same volumes: recall >= 0.7, finite
               outputs, masks in [0, 1], and the fused, slab and padded
               kernels each launched; detections matched against `adaptive`
@@ -33,7 +39,8 @@ seconds:
               whose split result must equal the default split's
   time        adaptive and monolithic vol/s and stage splits, and each
               kernel's / plain / library ms beside its bound, all timed
-              with CUDA events
+              with CUDA events; the adaptive classifier chunk's plain
+              gather + conv1 beside the fused kernel on the same rows
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -63,13 +70,16 @@ BATCH, SIZE = 4, 128
 RECALL_FLOOR = 0.7
 KERNEL_TOL = 1e-2          # x max|ref|: one bf16 rounding of the output
 FORCED_CAP = (8, 8, 16)    # fc_slab_cap that sends most rows to the slab kernel
+NMS_N, NMS_THR, NMS_K = 30000, 0.7, 3000  # hela: PRE_NMS_LIMIT, RPN NMS, POST_NMS
+CHUNK_FC = "roialign_fc (adaptive chunk)"  # timing only: not on a main path
 PALLAS = "m3d/ops/pallas_roialign.py"
 # TPU kernel bodies the port's kernels replace (file:line).
 REPLACES = {"roialign_compact": f"{PALLAS}:1022",     # _kernel_vmem_compact
             "roialign_fc (kron)": f"{PALLAS}:497",    # _kernel_slab_fc_kron
             "roialign_padded": f"{PALLAS}:177",       # _kernel_vmem
             "roialign_slab": f"{PALLAS}:42",          # _kernel
-            "roialign_fc (separable)": f"{PALLAS}:273"}  # _kernel_slab_fc
+            "roialign_fc (separable)": f"{PALLAS}:273",  # _kernel_slab_fc
+            CHUNK_FC: f"{PALLAS}:497"}
 
 T0 = time.perf_counter()
 
@@ -314,7 +324,7 @@ def fc_library_call(args):
         g, c = out.shape[:2]
         rows = out.reshape(g, c, r_max, p, p, p).permute(
             0, 2, 3, 4, 5, 1).reshape(g * r_max, -1)
-        return rows.index_select(0, flat_idx) @ wk
+        return rows.index_select(0, flat_idx) @ wk.t()
     return run
 
 
@@ -366,7 +376,7 @@ def slab_bound(args, fc: bool = False):
     if not fc:
         return bound(n * p ** 3 * c * item + in_bytes, f32_ops=2 * taps * c)
     wk = args[7]
-    k, f = wk.shape
+    f, k = wk.shape
     return bound(n * f * 4 + k * f * wk.element_size() + in_bytes,
                  f32_ops=2 * taps * c, bf16_ops=2.0 * cnt * k * f)
 
@@ -538,6 +548,40 @@ def matched_detections(det_ref, valid_ref, det, valid) -> int:
     return n
 
 
+def nms_check(dev) -> None:
+    """nms_3d on NMS_N proposal-like boxes (above FIXPOINT_MAX_N, so the
+    blockwise branch) against the numpy oracle: the kept indices must be
+    equal. Prints both times."""
+    from m3d_torch.data.synthetic import proposal_like_boxes
+    from m3d_torch.ops.nms3d import FIXPOINT_MAX_N, nms_3d, nms_3d_numpy
+
+    if NMS_N <= FIXPOINT_MAX_N:
+        raise AssertionError("the nms check must exceed FIXPOINT_MAX_N")
+    rng = np.random.RandomState(7)
+    boxes = proposal_like_boxes(rng, NMS_N)
+    scores = rng.uniform(size=NMS_N).astype(np.float32)
+    tb = torch.from_numpy(boxes[None]).to(dev)
+    ts = torch.from_numpy(scores[None]).to(dev)
+    nms_3d(tb, ts, NMS_THR, NMS_K)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    idx, ok = nms_3d(tb, ts, NMS_THR, NMS_K)
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    want = nms_3d_numpy(boxes, scores, NMS_THR, NMS_K)
+    oracle_s = time.perf_counter() - t
+    kept = idx[0][ok[0]].cpu().numpy()
+    if not np.array_equal(kept, want):
+        raise AssertionError(f"nms: {len(kept)} kept on the card, oracle "
+                             f"{len(want)}; first difference at "
+                             f"{int(np.argmax(kept[:len(want)] != want[:len(kept)]))}")
+    phase("nms", f"N={NMS_N} (> FIXPOINT_MAX_N={FIXPOINT_MAX_N}: blockwise) "
+          f"threshold {NMS_THR} max_output {NMS_K}: kept {len(kept)}, equal "
+          f"to the numpy oracle; {card_ms:.2f} ms on the card (host wall, "
+          f"host syncs included), oracle {oracle_s:.2f} s on the host")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -619,7 +663,7 @@ def main() -> int:
         (levels, pos, fms, cfg.DETECTION_MAX_INSTANCES), "padded random"))
     n_cls = BATCH * cfg.POST_NMS_ROIS_INFERENCE
     conv1 = model.classifier.mrcnn_class_conv1
-    wk = rf.conv1_weight_kf(conv1.weight, torch.bfloat16)
+    wk = rf.conv1_weight_fk(conv1.weight, torch.bfloat16)
     for bounds in ((0, 0), (0, 1), (0, n_cls), (700, 600)):
         args = random_slab_batch(fms, n_cls, p, gen, (99, 99, 99), bounds)
         errs["roialign_slab"].append(
@@ -628,6 +672,9 @@ def main() -> int:
         errs["roialign_fc (kron)"].append(compare_fc(
             args[:7] + [wk, args[7]], f"fc random bounds={bounds}"))
     del fms, args
+
+    # nms: the blockwise branch at the hela configs' candidate count ----
+    nms_check(dev)
 
     # adaptive ---------------------------------------------------------
     image, gt_boxes = make_volumes(BATCH, SIZE)
@@ -643,12 +690,16 @@ def main() -> int:
                                   mask_chunk=mask_chunk)
 
     spy = Spy()
+    chunks_seen = []
+    model.classify_rois_flat = lambda *a: (
+        chunks_seen.append(a), type(model).classify_rois_flat(model, *a))[1]
     t = time.perf_counter()
     reset_counts()
     out = run()
     torch.cuda.synchronize()
     launches = {"roialign_compact": rc.KERNEL.launches}
     spy.restore()
+    del model.classify_rois_flat
     captured = spy.calls["roialign_compact"]
     first_s = time.perf_counter() - t
     det = out["detections"].float().cpu().numpy()
@@ -759,6 +810,19 @@ def main() -> int:
         args_fc_forced, f"forced fallback {FORCED_CAP} (fused rows)"))
     check_close(forced, default, f"forced fallback split (n_fit={n_fit} of "
                 f"{forced.shape[0] * forced.shape[1]}) vs default split")
+    # The adaptive classifier's first chunk, as the fused entry would take
+    # it: slab inputs with bounds (0, n_fit), as _roi_align_fc_flat_core
+    # makes them. Its launches here are checks, not the main path's.
+    boxes_c, batch_c, meta_c, feats_c = chunks_seen[0]
+    spy = Spy()
+    with torch.no_grad():
+        roialign3d.pyramid_roi_align_fc_flat(boxes_c, batch_c, meta_c,
+                                             feats_c, p, conv1.weight)
+    spy.restore()
+    args_fc_chunk = spy.calls["roialign_fc"][0]
+    errs[CHUNK_FC].append(compare_fc(
+        args_fc_chunk, f"adaptive classifier chunk ({boxes_c.shape[0]} rows)"))
+    launches[CHUNK_FC] = 0
 
     # time -------------------------------------------------------------
     run()
@@ -801,6 +865,19 @@ def main() -> int:
           f"fallback conv3d_fc over all {args_slab_main[0].shape[0]} rows "
           f"(float32) {fb_ms:.4f} ms")
 
+    def gather_conv1():
+        pooled = roialign3d.pyramid_roi_align_flat(boxes_c, batch_c, meta_c,
+                                                   feats_c, p)
+        return model.classifier.conv1_as_matmul(pooled)
+
+    with torch.no_grad():
+        gather_conv1()
+        chunk_ms = cuda_ms(gather_conv1, 10)
+    phase("time", f"adaptive classifier chunk ({boxes_c.shape[0]} rows, "
+          f"{int(args_fc_chunk[-1][1])} fit the fused slab): plain gather + "
+          f"conv1 (the adaptive path's route) {chunk_ms:.4f} ms; the fused "
+          f"kernel on the same rows is '{CHUNK_FC}' below")
+
     levels, bat, total, pos, fms_main = args
     pad_levels, pad_pos, pad_fms, pad_n = args_pad
     n_pad = pad_pos.shape[0]
@@ -836,12 +913,18 @@ def main() -> int:
             lambda: rf.roialign_fc_plain(*args_fc_forced),
             fc_library_call(args_fc_forced),
             slab_bound(args_fc_forced, fc=True), 20),
+        CHUNK_FC: (
+            lambda: rf.roialign_fc(*args_fc_chunk),
+            lambda: rf.roialign_fc_plain(*args_fc_chunk),
+            fc_library_call(args_fc_chunk),
+            slab_bound(args_fc_chunk, fc=True), 20),
     }
     sources = {"roialign_compact": "m3d_torch/csrc/roialign_compact.cu",
                "roialign_fc (kron)": "m3d_torch/csrc/roialign_fc.cu",
                "roialign_padded": "m3d_torch/csrc/roialign_compact.cu",
                "roialign_slab": "m3d_torch/csrc/roialign_slab.cu",
-               "roialign_fc (separable)": "m3d_torch/csrc/roialign_fc.cu"}
+               "roialign_fc (separable)": "m3d_torch/csrc/roialign_fc.cu",
+               CHUNK_FC: "m3d_torch/csrc/roialign_fc.cu"}
     kernels = []
     for name, (kern, plain, library, (bound_ms, bound_by, unit), kreps) in \
             timed.items():
@@ -864,6 +947,10 @@ def main() -> int:
             "library_ms": library_ms})
         if name == "roialign_fc (separable)":
             kernels[-1]["same_launch_as"] = "roialign_fc (kron)"
+        if name == CHUNK_FC:
+            kernels[-1]["timing_only"] = (
+                "roialign_fc on the adaptive classifier's first chunk; the "
+                "adaptive path runs the plain gather there")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{smi}] peak memory {peak:.2f} GiB", flush=True)
 

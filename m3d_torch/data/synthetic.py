@@ -205,3 +205,23 @@ def make_volumes(batch: int, size: int, first_seed: int = 1000):
         vols.append(normalize_volume(img))
         gt_boxes.append(np.asarray(boxes, np.float32))
     return np.stack(vols), gt_boxes
+
+
+def proposal_like_boxes(rng: np.random.RandomState, n: int,
+                        per_object: int = 100) -> np.ndarray:
+    """[n, 6] float32 normalized boxes clustered the way RPN proposals
+    cluster around objects in a thin volume (256 x 256 x 12, as the hela
+    configs see it): one object per ``per_object`` boxes, each box the
+    object's box jittered by ~15 % of its size, so that many pairs overlap
+    above an NMS threshold of 0.7 and suppression chains run long."""
+    objects = max(n // per_object, 1)
+    c = rng.uniform(0.0, 1.0, (objects, 3)).astype(np.float32)
+    size = np.stack([rng.uniform(0.02, 0.08, objects),
+                     rng.uniform(0.02, 0.08, objects),
+                     rng.uniform(0.2, 0.6, objects)], -1).astype(np.float32)
+    k = rng.randint(0, objects, n)
+    jit = rng.normal(0, 0.15, (n, 3)).astype(np.float32) * size[k]
+    lo = np.clip(c[k] - size[k] / 2 + jit, 0.0, 1.0)
+    hi = np.clip(lo + size[k] * rng.uniform(0.85, 1.15, (n, 3)), 0.0, 1.0)
+    return np.concatenate([lo, np.maximum(hi, lo + 1e-3)],
+                          -1).astype(np.float32)

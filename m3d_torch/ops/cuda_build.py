@@ -3,9 +3,10 @@
 Each ``m3d_torch/csrc/<name>.cu`` builds with one plain ``nvcc -shared``
 call (C ABI, no PyTorch headers: seconds, not minutes) into its own
 library ``m3d_torch/_build/<name>_<tag>.so``, where ``tag`` hashes that
-source and the flags. The library is built at first use and rebuilt when
-either changes; it is loaded with ctypes. ``build_all`` starts one nvcc per
-source at once.
+source and the flags (a library that calls into libcuda, as the fused
+kernel does for its TMA tensor map, adds ``-lcuda``). The library is built
+at first use and rebuilt when either changes; it is loaded with ctypes.
+``build_all`` starts one nvcc per source at once.
 """
 
 from __future__ import annotations
@@ -43,17 +44,19 @@ class CudaLibrary:
     functions it exports, each with its ctypes argument types. Every entry
     returns the launch's cudaError_t (0 = ok)."""
 
-    def __init__(self, name: str, functions: dict):
+    def __init__(self, name: str, functions: dict, link=()):
         self.name = name
         self.source = os.path.join(CSRC, f"{name}.cu")
         self.functions = functions
+        self.link = tuple(link)  # libraries, placed after the source
         self.lib = None
         self.build_seconds = None  # None: the cached library was used
         self.build_log = ""
 
     def path(self) -> str:
         with open(self.source, "rb") as fh:
-            h = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+            h = hashlib.sha256(fh.read() + " ".join(
+                (*NVCC_FLAGS, *self.link)).encode())
         return os.path.join(BUILD_DIR, f"{self.name}_{h.hexdigest()[:16]}.so")
 
     def start_build(self):
@@ -64,7 +67,8 @@ class CudaLibrary:
             return None
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, self.source],
+        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, self.source,
+                                 *self.link],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, path, time.perf_counter()

@@ -1,70 +1,224 @@
-"""3D greedy non-max suppression, batched (port of ``nms_3d_fixpoint`` in
-m3d/ops/nms3d.py).
+"""3D greedy non-max suppression, batched (port of m3d/ops/nms3d.py).
 
-Sort by score (stable: among equal scores the lower index comes first, as
-``jnp.argsort`` orders them), build the triangular suppression matrix
-``M[j, i] = (j before i) & (IoU > thr)`` once, then iterate
-``alive <- alive0 & ~(alive @ M)`` until it stops changing. The fixpoint is
-the greedy keep set. Every image of the batch runs in the same matrix
-products; there is no Python loop over boxes.
+``nms_3d`` dispatches on the candidate count N as JAX's does: up to
+``FIXPOINT_MAX_N`` the fixpoint algorithm, above it the exact blockwise
+greedy, whose memory grows as N and not N^2.
+
+Fixpoint (``nms_3d_fixpoint``): sort by score (stable: among equal scores
+the lower index comes first, as ``jnp.argsort`` orders them), build the
+triangular suppression matrix ``M[j, i] = (j before i) & (IoU > thr)``
+once, then iterate ``alive <- alive0 & ~(alive @ M)`` until it stops
+changing. The fixpoint is the greedy keep set. Every image of the batch
+runs in the same matrix products; there is no Python loop over boxes.
+
+Blockwise (``nms_3d_blockwise``): boxes in score order, in blocks of
+``block_size``. Each block is resolved exactly by the same fixpoint on its
+[block, block] tile, then one [B, block, N] IoU propagates the kills of
+its kept boxes to every later box.
 
 Output contract (m3d/models/inference.py relies on it): exactly
 ``max_output`` indices per image, the kept ones first in descending score
 order, then padding slots with index 0 and ``valid`` False.
+
+``nms_3d_numpy`` is the plain greedy oracle (a copy of JAX's), for the
+tests and the card-side checks.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
-
-from m3d_torch.boxes import overlaps_3d
 
 NEG_INF = -1e30
 
+# Above this candidate count the fixpoint's [N, N] suppression matrix gets
+# too large and nms_3d takes the blockwise greedy; equal to
+# m3d/ops/nms3d.py's FIXPOINT_MAX_N.
+FIXPOINT_MAX_N = 16384
+# The blockwise branch reads its in-block fixpoint's convergence flag on the
+# host once per this many rounds (one sync per round would cost more than
+# the extra rounds).
+CHECK_EVERY = 4
+
+
+def pairwise_iou(a, b, vol_a, vol_b, eps: float = 1e-10):
+    """IoU between [..., A, 6] and [..., M, 6] boxes with their volumes ->
+    [..., A, M], each product and sum in the order of JAX's
+    ``_pairwise_iou`` and of ``nms_3d_numpy`` (float32 elementwise ops, so
+    the card gives the same bits as the CPU)."""
+    a, b = a[..., :, None, :], b[..., None, :, :]
+    d = [torch.clamp_min(torch.minimum(a[..., k + 3], b[..., k + 3])
+                         - torch.maximum(a[..., k], b[..., k]), 0.0)
+         for k in range(3)]
+    inter = d[0] * d[1] * d[2]
+    union = torch.clamp_min(vol_a[..., :, None] + vol_b[..., None, :] - inter,
+                            eps)
+    return inter / union
+
+
+def _volume(boxes):
+    return ((boxes[..., 3] - boxes[..., 0]) * (boxes[..., 4] - boxes[..., 1])
+            * (boxes[..., 5] - boxes[..., 2]))
+
+
+def _sorted(boxes, scores, valid):
+    """float32 boxes and scores (invalid scores at NEG_INF), sorted by
+    descending score (stable): (order, boxes_s, vols_s, alive0)."""
+    boxes = boxes.float()
+    scores = scores.float()
+    if valid is not None:
+        scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    b, n = scores.shape
+    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
+    boxes_s = torch.gather(boxes, 1, order[..., None].expand(b, n, 6))
+    alive0 = torch.gather(scores, 1, order) > NEG_INF / 2
+    return order, boxes_s, _volume(boxes_s), alive0
+
+
+def _select(order, kept, max_output: int, n: int):
+    """Kept slots first (in score order), then the rest in position order:
+    the order jax.lax.top_k gives on key = where(kept, -pos, -inf). Indices
+    of padding rows (>= n) are clamped to n - 1 and never valid."""
+    b, n_all = kept.shape
+    k = min(max_output, n_all)
+    sel = torch.sort((~kept).to(torch.uint8), dim=1, stable=True).indices
+    sel = sel[:, :k]
+    out_valid = torch.gather(kept, 1, sel)
+    idx = torch.clamp_max(torch.gather(order, 1, sel), max(n - 1, 0))
+    indices = torch.where(out_valid, idx, torch.zeros_like(sel))
+    if max_output > k:
+        pad = max_output - k
+        indices = torch.cat([indices, indices.new_zeros(b, pad)], dim=1)
+        out_valid = torch.cat([out_valid, out_valid.new_zeros(b, pad)], dim=1)
+    return indices, out_valid
+
+
+def _fixpoint(alive0, sup, check_every: int, max_rounds: int):
+    """Iterate alive <- alive0 & ~(alive @ sup) from alive0 ([B, n] bool,
+    sup [B, n, n] float) for at most ``max_rounds`` rounds; the host reads
+    whether the last round changed anything once every ``check_every``
+    rounds."""
+    alive = alive0
+    rounds = 0
+    while rounds < max_rounds:
+        for _ in range(min(check_every, max_rounds - rounds)):
+            prev = alive
+            killed = torch.bmm(alive.float()[:, None, :], sup)[:, 0] > 0.5
+            alive = alive0 & ~killed
+            rounds += 1
+        if not bool((alive != prev).any()):
+            break
+    return alive
+
 
 def nms_3d(boxes, scores, iou_threshold: float, max_output: int,
-           valid=None, max_rounds: int = 64):
-    """Greedy NMS over [B, N, 6] boxes and [B, N] scores.
+           valid=None, block_size: int = 128):
+    """Greedy NMS over [B, N, 6] boxes and [B, N] scores: the fixpoint for
+    N <= FIXPOINT_MAX_N, else the blockwise greedy (as m3d.ops.nms3d.nms_3d
+    dispatches). Returns (indices [B, max_output] int64 into the N axis,
+    valid [B, max_output] bool)."""
+    if scores.shape[1] <= FIXPOINT_MAX_N:
+        return nms_3d_fixpoint(boxes, scores, iou_threshold, max_output,
+                               valid=valid)
+    return nms_3d_blockwise(boxes, scores, iou_threshold, max_output,
+                            valid=valid, block_size=block_size)
 
-    Returns (indices [B, K] int64 into the N axis, valid [B, K] bool).
-    Reads one bool per round on the host to stop at the fixpoint.
+
+def nms_3d_fixpoint(boxes, scores, iou_threshold: float, max_output: int,
+                    valid=None, max_rounds: int = 64):
+    """The fixpoint greedy (port of m3d.ops.nms3d.nms_3d_fixpoint): one
+    [B, N, N] suppression matrix, at most ``max_rounds`` rounds, one bool
+    read on the host per round."""
+    n = scores.shape[1]
+    order, boxes_s, vols, alive0 = _sorted(boxes, scores, valid)
+    iou = pairwise_iou(boxes_s, boxes_s, vols, vols)      # [B, N, N]
+    pos = torch.arange(n, device=boxes_s.device)
+    earlier = pos[:, None] < pos[None, :]                 # j before i
+    sup = ((iou > iou_threshold) & earlier).float()       # [B, N(j), N(i)]
+    del iou
+    alive = _fixpoint(alive0, sup, 1, max_rounds)
+    return _select(order, alive, max_output, n)
+
+
+def nms_3d_blockwise(boxes, scores, iou_threshold: float, max_output: int,
+                     valid=None, block_size: int = 128):
+    """Exact greedy NMS in blocks (port of m3d.ops.nms3d.nms_3d_blockwise,
+    batched over B).
+
+    Inputs are padded with -inf scores to a multiple of ``block_size`` and
+    to at least ``max_output``. Each block's boxes, minus those killed by
+    earlier blocks, are resolved by the fixpoint on the block's
+    [block, block] tile (at most ``block_size`` rounds, which settle any
+    chain; the host reads the convergence flag every ``CHECK_EVERY``
+    rounds); its kept boxes then kill every later box they overlap through
+    one [B, block, N] IoU. Blocks past the last live box (invalid and
+    padding rows sort last) are skipped: one host read for their count.
+    The largest tensor is [B, block, N]: no [B, N, N] is allocated.
     """
     boxes = boxes.float()
     scores = scores.float()
     b, n = scores.shape
     if valid is not None:
         scores = torch.where(valid, scores, torch.full_like(scores, NEG_INF))
+    n_min = max(n, max_output)
+    n_pad = (n_min - n) + ((-n_min) % block_size)
+    if n_pad:
+        boxes = torch.cat([boxes, boxes.new_zeros(b, n_pad, 6)], dim=1)
+        scores = torch.cat([scores, scores.new_full((b, n_pad), NEG_INF)],
+                           dim=1)
+    n_total = n + n_pad
+    order, boxes_s, vols, alive0 = _sorted(boxes, scores, None)
 
-    order = torch.sort(scores, dim=1, descending=True, stable=True).indices
-    boxes_s = torch.gather(boxes, 1, order[..., None].expand(b, n, 6))
-    scores_s = torch.gather(scores, 1, order)
-    alive0 = scores_s > NEG_INF / 2
+    pos = torch.arange(block_size, device=boxes.device)
+    earlier = pos[:, None] < pos[None, :]
+    suppressed = torch.zeros_like(alive0)
+    kept = torch.zeros_like(alive0)
+    n_live = int(alive0.sum(1).max()) if b else 0
+    for start in range(0, n_live, block_size):
+        end = start + block_size
+        blk, blk_vols = boxes_s[:, start:end], vols[:, start:end]
+        iou = pairwise_iou(blk, blk, blk_vols, blk_vols)
+        sup = ((iou > iou_threshold) & earlier).float()
+        blk_alive0 = alive0[:, start:end] & ~suppressed[:, start:end]
+        blk_kept = _fixpoint(blk_alive0, sup, CHECK_EVERY, block_size)
+        kept[:, start:end] = blk_kept
+        if end < n_total:
+            iou = pairwise_iou(blk, boxes_s[:, end:], blk_vols, vols[:, end:])
+            kills = ((iou > iou_threshold) & blk_kept[:, :, None]).any(1)
+            suppressed[:, end:] |= kills
+    return _select(order, kept, max_output, n)
 
-    iou = overlaps_3d(boxes_s, boxes_s, eps=1e-10)        # [B, N, N]
-    pos = torch.arange(n, device=boxes.device)
-    earlier = pos[:, None] < pos[None, :]                 # j before i
-    sup = ((iou > iou_threshold) & earlier).float()       # [B, N(j), N(i)]
-    del iou
 
-    alive = alive0
-    for _ in range(max_rounds):
-        killed = torch.bmm(alive.float()[:, None, :], sup)[:, 0] > 0.5
-        new_alive = alive0 & ~killed
-        changed = bool((new_alive != alive).any())
-        alive = new_alive
-        if not changed:
-            break
-
-    # Kept slots first (in score order), then the rest in position order:
-    # the order jax.lax.top_k gives on key = where(alive, -pos, -inf).
-    k = min(max_output, n)
-    sel = torch.sort((~alive).to(torch.uint8), dim=1, stable=True).indices
-    sel = sel[:, :k]
-    out_valid = torch.gather(alive, 1, sel)
-    indices = torch.where(out_valid, torch.gather(order, 1, sel),
-                          torch.zeros_like(sel))
-    if max_output > n:
-        pad = max_output - n
-        indices = torch.cat([indices, indices.new_zeros(b, pad)], dim=1)
-        out_valid = torch.cat([out_valid, out_valid.new_zeros(b, pad)], dim=1)
-    return indices, out_valid
+def nms_3d_numpy(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float,
+                 max_output: int):
+    """Plain-numpy greedy NMS oracle over one image's [N, 6] boxes and [N]
+    scores (a copy of m3d.ops.nms3d.nms_3d_numpy). Returns the kept indices
+    in descending score order, at most ``max_output``."""
+    n = boxes.shape[0]
+    if n == 0:
+        return np.zeros((0,), np.int32)
+    vols = (
+        (boxes[:, 3] - boxes[:, 0])
+        * (boxes[:, 4] - boxes[:, 1])
+        * (boxes[:, 5] - boxes[:, 2])
+    )
+    order = np.argsort(-scores, kind="stable")
+    keep = []
+    while order.size > 0 and len(keep) < max_output:
+        i = order[0]
+        keep.append(i)
+        rest = order[1:]
+        yy1 = np.maximum(boxes[i, 0], boxes[rest, 0])
+        xx1 = np.maximum(boxes[i, 1], boxes[rest, 1])
+        zz1 = np.maximum(boxes[i, 2], boxes[rest, 2])
+        yy2 = np.minimum(boxes[i, 3], boxes[rest, 3])
+        xx2 = np.minimum(boxes[i, 4], boxes[rest, 4])
+        zz2 = np.minimum(boxes[i, 5], boxes[rest, 5])
+        inter = (
+            np.maximum(yy2 - yy1, 0) * np.maximum(xx2 - xx1, 0)
+            * np.maximum(zz2 - zz1, 0)
+        )
+        union = np.maximum(vols[i] + vols[rest] - inter, 1e-10)
+        iou = inter / union
+        order = rest[iou <= iou_threshold]
+    return np.asarray(keep, np.int32)

@@ -21,7 +21,7 @@ from m3d_torch.image_meta import parse_image_meta
 from m3d_torch.ops.conv3d import conv3d_fc
 from m3d_torch.ops.roialign_compact import (flatten_pyramid, roialign_compact,
                                             roialign_padded, trilinear_gather)
-from m3d_torch.ops.roialign_fc import conv1_weight_kf, roialign_fc
+from m3d_torch.ops.roialign_fc import conv1_weight_fk, roialign_fc
 from m3d_torch.ops.roialign_slab import roialign_slab
 
 Z_ALIGN = 8  # slab z origins are 8-aligned, as the JAX entries place them
@@ -399,7 +399,7 @@ def _roi_align_fc_flat_core(boxes_f, levels_f, batch_f, fms, p, fc_weight,
     pdims = pdims_lut[levels_s.long()]
     zero = torch.zeros((), dtype=torch.int32, device=n_fit.device)
 
-    wk = conv1_weight_kf(fc_weight, fms[0].dtype)
+    wk = conv1_weight_fk(fc_weight, fms[0].dtype)
     out_fc = roialign_fc(levels_s, batch_s,
                          *_slab_weights(pos_s, rd_s, pdims, fc_slab), fms, wk,
                          torch.stack([zero, n_fit]).contiguous())

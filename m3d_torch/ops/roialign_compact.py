@@ -30,8 +30,8 @@ from __future__ import annotations
 
 import torch
 
-from m3d_torch.ops.cuda_build import (MAX_ROWS, CudaLibrary, I, LaunchCount,
-                                      P, on_card, stream_of)
+from m3d_torch.ops.cuda_build import (CudaLibrary, I, LaunchCount, P, on_card,
+                                      stream_of)
 
 
 def trilinear_gather(flat, base, dims, strides, positions):
@@ -151,8 +151,6 @@ def _check(levels, batch_idx, total, pos, feature_maps):
             raise ValueError(f"{name} must be contiguous int32 [N] on {dev}")
     if total.device != dev or total.dtype != torch.int32 or total.numel() != 1:
         raise ValueError(f"total must be one int32 on {dev}")
-    if n > MAX_ROWS:
-        raise ValueError(f"at most {MAX_ROWS} rows per launch, got {n}")
 
 
 def _launch(levels, batch_idx, total, pos, feature_maps, count):
@@ -161,6 +159,9 @@ def _launch(levels, batch_idx, total, pos, feature_maps, count):
     n, _, p = pos.shape
     f0 = feature_maps[0]
     c = f0.shape[-1]
+    if c % 8 or any(fm.data_ptr() % 16 for fm in feature_maps):
+        raise ValueError(f"the kernel needs C % 8 == 0 and 16-byte aligned "
+                         f"features, got C={c}")
     out = torch.empty((n, p, p, p, c), dtype=f0.dtype, device=pos.device)
     if n == 0:
         return out

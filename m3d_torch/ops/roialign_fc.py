@@ -6,15 +6,18 @@ Replaces the TPU kernels ``_kernel_slab_fc_kron`` and ``_kernel_slab_fc``
 and ``pallas_pyramid_roi_align_fc``). Both compute one function from the
 same inputs (the Kronecker weight of the first is built from the second's
 ``wy``/``wx``), so one kernel, m3d_torch/csrc/roialign_fc.cu, serves both;
-its header note gives the function, the bound on an H100 and the design.
+its header note gives the function, the bound on an H100 and the design
+(persistent, warp-specialised wgmma with TMA-fed weight tiles, K split on
+the device from ``bounds``).
 
 ``roialign_fc`` takes the slab contract of m3d_torch/ops/roialign_slab.py
 (levels, batch_idx, origins, wy, wx, wz, feature_maps, bounds) plus ``wk``,
-the FC weight in the kernel's K order ([p^3 * C, F] in the features'
-dtype, ``conv1_weight_kf``). It returns [N, F] float32 without bias: rows in
-[offset, offset + count) hold the pooled row (rounded to the features'
-dtype) times ``wk``, other rows are zero. On a CPU tensor it runs
-``roialign_fc_plain``; on a CUDA tensor it launches the kernel or raises.
+the FC weight as [F, p^3 * C] in the features' dtype, K ordered as the
+pooled [p, p, p, C] row flattens (``conv1_weight_fk``). It returns [N, F]
+float32 without bias: rows in [offset, offset + count) hold the pooled row
+(rounded to the features' dtype) times ``wk``, other rows are zero. On a
+CPU tensor it runs ``roialign_fc_plain``; on a CUDA tensor it launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -26,25 +29,41 @@ from m3d_torch.ops.cuda_build import (CudaLibrary, I, LaunchCount, P, on_card,
 from m3d_torch.ops.roialign_slab import check_slab_inputs, roialign_slab_plain
 
 LIB = CudaLibrary("roialign_fc", {
-    "roialign_fc_launch": [P] * 4 + [I] * 12 + [P] * 9 + [I] * 7 + [P]})
+    "roialign_fc_launch": [P] * 4 + [I] * 12 + [P] * 10 + [I] * 8 + [P]},
+    link=("-lcuda",))
 KERNEL = LaunchCount()
-K_CHUNK = 64  # channels per K chunk of the kernel: C must be a multiple
+K_CHUNK = 64   # channels per K step of the kernel: C must be a multiple
+F_GROUP = 512  # outputs per work item: the workspace holds [SMs, 64, 512]
 
 
-def conv1_weight_kf(weight, dtype):
-    """torch conv weight [F, C, p, p, p] -> [p^3 * C, F] in ``dtype``, K
-    ordered (y, x, z, c) as the pooled row [p, p, p, C] flattens."""
-    return weight.permute(2, 3, 4, 1, 0).reshape(-1, weight.shape[0]).to(
-        dtype).contiguous()
+def conv1_weight_fk(weight, dtype):
+    """torch conv weight [F, C, p, p, p] -> [F, p^3 * C] in ``dtype``, K
+    ordered (y, x, z, c) as the pooled row [p, p, p, C] flattens.
+
+    The result is kept on ``weight`` and reused while the parameter's
+    storage and version counter are unchanged: an in-place update (an
+    optimizer step, ``load_state_dict``) rebuilds it on the next call."""
+    key = (weight.data_ptr(), weight._version, dtype, weight.device)
+    cached = getattr(weight, "_m3d_fk", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    with torch.no_grad():
+        wk = weight.permute(0, 2, 3, 4, 1).reshape(weight.shape[0], -1).to(
+            dtype).contiguous()
+    weight._m3d_fk = (key, wk)
+    return wk
 
 
 def roialign_fc_plain(levels, batch_idx, origins, wy, wx, wz, feature_maps,
                       wk, bounds):
     """Plain PyTorch version: the slab gather on the rows in ``bounds``,
-    rounded to the features' dtype, then one float32 matmul with ``wk``."""
+    rounded to the features' dtype, then one float32 matmul with ``wk``
+    (as [K, F], the operand layout of conv3d_fc's matmul, so both sum in
+    one order)."""
     pooled = roialign_slab_plain(levels, batch_idx, origins, wy, wx, wz,
                                  feature_maps, bounds)
-    return pooled.reshape(pooled.shape[0], -1).float() @ wk.float()
+    return (pooled.reshape(pooled.shape[0], -1).float()
+            @ wk.float().t().contiguous())
 
 
 def roialign_fc(levels, batch_idx, origins, wy, wx, wz, feature_maps, wk,
@@ -54,11 +73,11 @@ def roialign_fc(levels, batch_idx, origins, wy, wx, wz, feature_maps, wk,
         levels, batch_idx, origins, wy, wx, wz, feature_maps, bounds)
     dev = wy.device
     f0 = feature_maps[0]
-    if (wk.dim() != 2 or wk.shape[0] != p ** 3 * c or wk.dtype != f0.dtype
+    if (wk.dim() != 2 or wk.shape[1] != p ** 3 * c or wk.dtype != f0.dtype
             or wk.device != dev or not wk.is_contiguous()):
-        raise ValueError(f"wk must be contiguous [{p ** 3 * c}, F] "
+        raise ValueError(f"wk must be contiguous [F, {p ** 3 * c}] "
                          f"{f0.dtype} on {dev}")
-    f = wk.shape[1]
+    f = wk.shape[0]
     if not on_card(dev, "fused ROIAlign+FC"):
         return roialign_fc_plain(levels, batch_idx, origins, wy, wx, wz,
                                  feature_maps, wk, bounds)
@@ -70,13 +89,16 @@ def roialign_fc(levels, batch_idx, origins, wy, wx, wz, feature_maps, wk,
     out = torch.empty((n, f), dtype=torch.float32, device=dev)
     if n == 0:
         return out
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ws = torch.empty((sms, 64, F_GROUP), dtype=torch.float32, device=dev)
     dims = [int(v) for fm in feature_maps for v in fm.shape[1:4]]
     with torch.cuda.device(dev):
         LIB.call("roialign_fc_launch",
                  *(fm.data_ptr() for fm in feature_maps), *dims,
                  levels.data_ptr(), batch_idx.data_ptr(), origins.data_ptr(),
                  wy.data_ptr(), wx.data_ptr(), wz.data_ptr(),
-                 bounds.data_ptr(), wk.data_ptr(), out.data_ptr(), n, p, sy,
-                 sx, sz, c, f, stream_of(wy))
+                 bounds.data_ptr(), wk.data_ptr(), out.data_ptr(),
+                 ws.data_ptr(), n, p, sy, sx, sz, c, f, sms,
+                 stream_of(wy))
     KERNEL.launches += 1
     return out

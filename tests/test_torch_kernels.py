@@ -1,14 +1,19 @@
 """The ROIAlign kernel wrappers (m3d_torch/ops/roialign_compact.py,
-roialign_slab.py, roialign_fc.py): their input checks and CPU path here,
-and each CUDA kernel against its plain PyTorch version on the card (marker
-``cuda``; skips without a card). Imports no JAX, so the card's machine can
-run it: ``python -m pytest -m cuda tests/test_torch_kernels.py``.
+roialign_slab.py, roialign_fc.py): their input checks, their CPU path and
+the fused kernel's prepared-weight cache here, and each CUDA kernel against
+its plain PyTorch version on the card, at small shapes and at the main
+path's shapes, plus the blockwise NMS at the hela configs' 30000 candidates
+against the numpy oracle (marker ``cuda``; skips without a card). Imports no
+JAX, so the card's machine can run it:
+``python -m pytest -m cuda tests/test_torch_kernels.py``.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from m3d_torch.data.synthetic import proposal_like_boxes
+from m3d_torch.ops import nms3d as TN
 from m3d_torch.ops import roialign3d as TR
 from m3d_torch.ops import roialign_compact as TC
 from m3d_torch.ops import roialign_fc as TF
@@ -141,7 +146,7 @@ def test_slab_and_fc_wrappers_use_plain_versions_on_cpu():
     got = TS.roialign_slab(*args, bounds)
     np.testing.assert_array_equal(
         got.numpy(), TS.roialign_slab_plain(*args, bounds).numpy())
-    fc = TF.roialign_fc(*args, w.t().contiguous(), bounds)
+    fc = TF.roialign_fc(*args, w, bounds)
     np.testing.assert_allclose(
         fc.numpy(), (got.reshape(12, -1) @ w.t()).numpy(), rtol=1e-5,
         atol=1e-5)
@@ -157,7 +162,7 @@ def test_slab_and_fc_wrappers_reject_bad_inputs(bad):
     rng = np.random.RandomState(13)
     args = _slab_args(rng)
     bounds = torch.tensor([0, 12], dtype=torch.int32)
-    wk = torch.zeros(8 * 7 ** 3, 8)
+    wk = torch.zeros(8, 8 * 7 ** 3)
     if bad == "levels_dtype":
         args[0] = args[0].long()
     elif bad == "bounds_shape":
@@ -174,7 +179,7 @@ def test_slab_and_fc_wrappers_reject_bad_inputs(bad):
         with pytest.raises((TypeError, ValueError)):
             TS.roialign_slab(*args, bounds)
     else:
-        wk = wk[:-8]
+        wk = wk[:, :-8].contiguous()
     with pytest.raises((TypeError, ValueError)):
         TF.roialign_fc(*args, wk, bounds)
 
@@ -237,7 +242,7 @@ def test_fc_kernel_matches_plain_on_card(bounds):
                                random_weights=rand))
     w = torch.from_numpy(rng.randn(40, 256, 7, 7, 7).astype(np.float32)
                          * 0.01).cuda()
-    wk = TF.conv1_weight_kf(w, torch.bfloat16)
+    wk = TF.conv1_weight_fk(w, torch.bfloat16)
     tb = torch.tensor(bounds, dtype=torch.int32, device="cuda")
     got = TF.roialign_fc(*args, wk, tb)
     ref = TF.roialign_fc_plain(*args, wk, tb)
@@ -259,7 +264,7 @@ def _zero_row_calls(on_gpu: bool):
     empty = [t[:0].contiguous() for t in (levels, bat, pos)]
     slab0 = [t[:0].contiguous() for t in slab[:6]] + [slab[6]]
     bounds = torch.zeros(2, dtype=torch.int32, device=dev)
-    wk = torch.zeros(64 * 7 ** 3, 8, dtype=dtype, device=dev)
+    wk = torch.zeros(8, 64 * 7 ** 3, dtype=dtype, device=dev)
     total = torch.zeros((), dtype=torch.int32, device=dev)
     return {
         "compact": (TC.KERNEL, lambda: TC.roialign_compact(
@@ -305,8 +310,141 @@ def test_fused_route_raises_on_card_for_features_it_cannot_take():
     rng = np.random.RandomState(18)
     args = _to_card(_slab_args(rng, c=96, dtype=torch.bfloat16))
     assert TR.fused_classifier_ok(7, args[6])
-    wk = torch.zeros(96 * 7 ** 3, 8, dtype=torch.bfloat16, device="cuda")
+    wk = torch.zeros(8, 96 * 7 ** 3, dtype=torch.bfloat16, device="cuda")
     with pytest.raises(ValueError):
         TF.roialign_fc(*args, wk,
                        torch.tensor([0, 12], dtype=torch.int32,
                                     device="cuda"))
+
+
+@pytest.mark.cuda
+def test_nms_blockwise_on_card_matches_oracle_at_hela_size():
+    """nms_3d at N = 30000 (the hela configs' PRE_NMS_LIMIT, threshold 0.7,
+    3000 outputs), B = 1, on the card: the blockwise branch, its kept set
+    equal to the numpy oracle's."""
+    _needs_card()
+    rng = np.random.RandomState(40)
+    boxes = proposal_like_boxes(rng, 30000)
+    scores = rng.uniform(size=30000).astype(np.float32)
+    idx, ok = TN.nms_3d(T(boxes[None]).cuda(), T(scores[None]).cuda(), 0.7,
+                        3000)
+    want = TN.nms_3d_numpy(boxes, scores, 0.7, 3000)
+    np.testing.assert_array_equal(idx[0][ok[0]].cpu().numpy(), want)
+
+
+def test_prepared_conv1_weight_is_cached_and_rebuilt_after_update():
+    """conv1_weight_fk keeps its [F, K] result on the parameter: the same
+    tensor while the parameter is unchanged, a new one after an in-place
+    update (its version counter moves), and always the fresh layout."""
+    rng = np.random.RandomState(19)
+    w = torch.nn.Parameter(T(rng.randn(6, 8, 3, 3, 3).astype(np.float32)))
+
+    def fresh():
+        return w.detach().permute(0, 2, 3, 4, 1).reshape(6, -1).to(
+            torch.bfloat16)
+
+    a = TF.conv1_weight_fk(w, torch.bfloat16)
+    assert a.shape == (6, 8 * 27) and a.is_contiguous()
+    assert torch.equal(a, fresh())
+    assert TF.conv1_weight_fk(w, torch.bfloat16) is a
+    assert TF.conv1_weight_fk(w, torch.float32).dtype == torch.float32
+    with torch.no_grad():
+        w.mul_(2.0)
+    b = TF.conv1_weight_fk(w, torch.bfloat16)
+    assert b is not a and torch.equal(b, fresh())
+    assert not torch.equal(a, b)
+    w.data = w.data.clone()  # new storage, same values
+    assert TF.conv1_weight_fk(w, torch.bfloat16) is not b
+
+
+def _bench_pyramid(rng, c=256):
+    """bf16 levels at the bench config's shapes (128^3, strides 4-32, B=4)
+    on the card."""
+    return [torch.from_numpy(rng.randn(4, s, s, s, c).astype(np.float32))
+            .to(torch.bfloat16).cuda() for s in (32, 16, 8, 4)]
+
+
+def _bench_fc_args(rng, feats, n, bounds, general=False):
+    """Fused-kernel inputs at the bench shapes: n rows over all four levels,
+    weights for the (16, 16, 24) slab as the fused classifier places them
+    (or, with ``general``, random sparse weights with more than two taps
+    per position), F = 512 outputs, C = 256."""
+    levels = T((np.arange(n) % 4).astype(np.int32))
+    bat = T(np.sort(rng.randint(0, 4, n)).astype(np.int32))
+    lo = rng.uniform(0, 0.6, (n, 3)).astype(np.float32)
+    boxes = T(np.concatenate([lo, lo + rng.uniform(0.05, 0.35, (n, 3))], 1)
+              .astype(np.float32))
+    cpu = [f[:1].cpu() for f in feats]  # geometry only needs the shapes
+    slab, pdims = TR._slab_geometry(cpu)
+    tier = tuple(min(a, b) for a, b in zip((16, 16, 24), slab))
+    rd, pos = TR._level_positions(boxes, levels, cpu, 7)
+    origins, wy, wx, wz = TR._slab_weights(pos, rd, pdims[levels.long()],
+                                           tier)
+    if general:
+        wy, wx, wz = (T((rng.randn(*w.shape) * (rng.uniform(size=w.shape)
+                                                < 0.3)).astype(np.float32))
+                      for w in (wy, wx, wz))
+    w = torch.from_numpy(rng.randn(512, 256, 7, 7, 7).astype(np.float32)
+                         * 0.01)
+    args = _to_card([levels, bat, origins, wy, wx, wz])
+    return args + [feats, TF.conv1_weight_fk(w, torch.bfloat16).cuda(),
+                   torch.tensor(bounds, dtype=torch.int32, device="cuda")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bounds,general", [
+    (2000, (0, 1957), False),   # A: the monolithic classifier
+    (2000, (0, 70), False),     # B: the forced split's fused rows
+    (125, (0, 125), False),     # C: one adaptive classifier chunk
+    (2000, (0, 0), False), (2000, (0, 1), False), (2000, (0, 2000), False),
+    (2000, (700, 600), False), (300, (10, 250), True)])
+def test_fc_kernel_at_bench_shapes_on_card(n, bounds, general):
+    """The redesigned fused kernel at the main path's shapes (F = 512,
+    C = 256, p = 7) against its plain version: tolerance 1e-2 of the
+    largest output (pooled rows rounded to bf16 on both sides, sums in
+    another order), rows outside bounds exactly zero, and the same bits
+    on a second call (the K split is summed in a fixed order)."""
+    _needs_card()
+    rng = np.random.RandomState(20 + n + bounds[1])
+    feats = _bench_pyramid(rng)
+    args = _bench_fc_args(rng, feats, n, bounds, general)
+    before = TF.KERNEL.launches
+    got = TF.roialign_fc(*args)
+    assert TF.KERNEL.launches == before + 1
+    ref = TF.roialign_fc_plain(*args)
+    lo, hi = bounds[0], bounds[0] + bounds[1]
+    assert (got[:lo] == 0).all() and (got[hi:] == 0).all()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-2 * max(ref.abs().max(), 1e-30)
+    assert torch.equal(TF.roialign_fc(*args), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("total", [0, 1, 37, 200])
+def test_compact_kernel_at_bench_shape_on_card(total):
+    """The redesigned compact kernel at the mask stage's shape (200 rows,
+    p = 14, C = 256) and through the padded entry: one bf16 rounding of the
+    largest output, rows >= total exactly zero."""
+    _needs_card()
+    rng = np.random.RandomState(30 + total)
+    feats = _bench_pyramid(rng)
+    n = 200
+    levels = torch.from_numpy((np.arange(n) % 4).astype(np.int32)).cuda()
+    bat = torch.from_numpy(np.sort(rng.randint(0, 4, n)).astype(np.int32)) \
+        .cuda()
+    lo = rng.uniform(-0.1, 0.7, (3, n)).astype(np.float32)
+    dims = torch.tensor([f.shape[1] for f in feats])[levels.long().cpu()]
+    pos = torch.stack([TR.axis_positions(T(l), T(l + 0.35), dims, 14)
+                       for l in lo], 1).contiguous().cuda()
+    tt = torch.tensor(total, dtype=torch.int32, device="cuda")
+    got = TC.roialign_compact(levels, bat, tt, pos, feats).float()
+    ref = TC.roialign_compact_plain(levels, bat, tt, pos,
+                                    [f.float() for f in feats])
+    assert (got[total:] == 0).all() and torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-2 * max(ref.abs().max(), 1e-30)
+    if total == n:
+        pad = TC.roialign_padded(levels, pos, feats, 50).float()
+        bat_p = torch.arange(n, dtype=torch.int32, device="cuda") // 50
+        ref_p = TC.roialign_compact_plain(levels, bat_p, tt, pos,
+                                          [f.float() for f in feats])
+        assert (pad - ref_p).abs().max() <= 1e-2 * ref_p.abs().max()

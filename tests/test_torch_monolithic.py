@@ -133,7 +133,7 @@ def test_monolithic_stages_match_jax(tiny_models):
 @torch.no_grad()
 def test_classifier_from_fc_matches_jax():
     """ClassifierHead(from_fc=True) on conv1's output plus bias: the port's
-    fused path (pooled rows times conv1_weight_kf, bias added in float32)
+    fused path (pooled rows times conv1_weight_fk, bias added in float32)
     against JAX's (conv3d_fc with the flax kernel, bias, from_fc=True), and
     both against the head's own conv1."""
     rng = np.random.RandomState(5)
@@ -147,8 +147,8 @@ def test_classifier_from_fc_matches_jax():
     ref = jm.apply(v, fc, from_fc=True)
     th = port(ClassifierHead(16, 7, 2, 24, F32), v)
     conv = th.mrcnn_class_conv1
-    wk = TF.conv1_weight_kf(conv.weight, torch.float32)
-    tfc = (T(x).reshape(6, -1) @ wk).reshape(2, 3, 24) + conv.bias
+    wk = TF.conv1_weight_fk(conv.weight, torch.float32)
+    tfc = (T(x).reshape(6, -1) @ wk.t()).reshape(2, 3, 24) + conv.bias
     got = th(tfc, from_fc=True)
     for g, r, whole in zip(got, ref, jm.apply(v, x)):
         assert_close(g, r)

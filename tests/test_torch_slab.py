@@ -252,7 +252,7 @@ def test_fc_wrapper_bounds_and_weight_order():
     rng = np.random.RandomState(7)
     args, _, _ = _slab_inputs(rng, c=8)
     w = T(rng.randn(5, 8, 7, 7, 7).astype(np.float32))
-    wk = TF.conv1_weight_kf(w, torch.float32)
+    wk = TF.conv1_weight_fk(w, torch.float32)
     bounds = torch.tensor([3, 6], dtype=torch.int32)
     got = TF.roialign_fc(*args, wk, bounds)
     pooled = TS.roialign_slab(*args, bounds)
