@@ -20,7 +20,11 @@ seconds:
   kernel      compact kernel vs its plain PyTorch version on random compact
               batches at the bench shapes, total in {0, 1, 37, N}; padded,
               slab and fused kernels vs theirs on random batches at the
-              bench shapes, bounds (0, 0), (0, 1), (0, N) and an offset
+              bench shapes, bounds (0, 0), (0, 1), (0, N) and an offset;
+              the slab kernel also on dense random weights (its general
+              path) and on a batch mixing both, and the span-tiered branch
+              of pyramid_roi_align_pallas (three slab launches) against the
+              padded kernel on the same boxes
   nms         nms_3d at the hela configs' 30000 candidates (the blockwise
               branch) on proposal-like boxes: the kept set must equal the
               numpy oracle's exactly
@@ -405,6 +409,48 @@ def compare_slab(args, label: str) -> float:
     return check_close(got, ref, label, off, off + cnt)
 
 
+def dense_random(w, gen, rows=None):
+    """w with ``rows`` (default all) replaced by random weights, ~30 % of
+    each row's columns nonzero: far more than two taps a sample, which is
+    the slab kernel's general path."""
+    r = torch.randn(w.shape, generator=gen, device=w.device) * (
+        torch.rand(w.shape, generator=gen, device=w.device) < 0.3)
+    if rows is None:
+        return r.contiguous()
+    out = w.clone()
+    out[rows] = r[rows]
+    return out
+
+
+def tiered_check(fms, meta_b, p: int, gen) -> float:
+    """The span-tiered branch of pyramid_roi_align_pallas (slab
+    (32, 32, 32): tiers (8, 8, 16), (16, 16, 24) and the full slab, one slab
+    kernel launch each) against the padded kernel on the same random boxes;
+    the two compute the same function. Every tier must get rows."""
+    from m3d_torch.ops import roialign3d
+    from m3d_torch.ops import roialign_slab as rs
+
+    dev = fms[0].device
+    n = 500  # boxes per image, the bench config's POST_NMS_ROIS_INFERENCE
+    lo = torch.rand(BATCH, n, 3, generator=gen, device=dev) * 0.5
+    ext = 0.03 + torch.rand(BATCH, n, 3, generator=gen, device=dev) * 0.6
+    boxes = torch.cat([lo, (lo + ext).clamp(max=1.0)], -1)
+    spy = Spy()
+    before = rs.KERNEL.launches
+    tiered = roialign3d.pyramid_roi_align_pallas(boxes, meta_b, fms, p,
+                                                 slab=(32, 32, 32))
+    launched = rs.KERNEL.launches - before
+    spy.restore()
+    counts = [int(a[-1][1]) for a in spy.calls["roialign_slab"]]
+    if launched != 3 or len(counts) != 3 or min(counts) < 1:
+        raise AssertionError(f"tiered branch: {launched} slab launches, "
+                             f"rows per tier {counts}")
+    padded = roialign3d.pyramid_roi_align_pallas(boxes, meta_b, fms, p)
+    return check_close(tiered.flatten(0, 1), padded.flatten(0, 1),
+                       f"tiered slab branch (rows per tier {counts}) vs "
+                       f"padded kernel")
+
+
 def compare_fc(args, label: str) -> float:
     """The fused kernel against its plain version in the working type: both
     round the pooled rows to bf16 and multiply by the bf16 weight."""
@@ -646,6 +692,8 @@ def main() -> int:
         raise AssertionError(f"checkpoint does not cover the model: {stats}")
 
     # kernel: random batches at the bench shapes -------------------------
+    meta_b = torch.as_tensor(np.tile(default_meta(cfg)[None], (BATCH, 1)),
+                             device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
     m, p = cfg.MASK_POOL_SIZE, cfg.POOL_SIZE
     shapes = cfg.backbone_shapes()[:4]
@@ -671,6 +719,18 @@ def main() -> int:
         args = random_slab_batch(fms, n_cls, p, gen, (16, 16, 24), bounds)
         errs["roialign_fc (kron)"].append(compare_fc(
             args[:7] + [wk, args[7]], f"fc random bounds={bounds}"))
+    # The slab kernel's general path: dense random weights (more than two
+    # taps a sample), for every row and for every third row.
+    for rows in (None, slice(0, None, 3)):
+        args = random_slab_batch(fms, n_cls, p, gen, (99, 99, 99),
+                                 (0, n_cls))
+        args[3:6] = [dense_random(w, gen, rows) for w in args[3:6]]
+        what = "every row" if rows is None else "every third row"
+        errs["roialign_slab"].append(compare_slab(
+            args, f"slab dense random weights on {what} (general path)"))
+        phase("kernel", f"slab dense random weights on {what}: "
+              f"{cuda_ms(lambda: rs.roialign_slab(*args), 2):.3f} ms")
+    errs["roialign_slab"].append(tiered_check(fms, meta_b, p, gen))
     del fms, args
 
     # nms: the blockwise branch at the hela configs' candidate count ----
@@ -679,8 +739,6 @@ def main() -> int:
     # adaptive ---------------------------------------------------------
     image, gt_boxes = make_volumes(BATCH, SIZE)
     anchors = torch.as_tensor(normalized_pyramid_anchors(cfg), device=dev)
-    meta_b = torch.as_tensor(np.tile(default_meta(cfg)[None], (BATCH, 1)),
-                             device=dev)
     image = torch.as_tensor(image, device=dev)
     cls_chunk, mask_chunk = default_chunks(model)
 
@@ -855,13 +913,17 @@ def main() -> int:
 
     slab_main_ms = cuda_ms(lambda: rs.roialign_slab(*args_slab_main), 20)
     slab_main_bound = slab_bound(args_slab_main)
+    slab_main_lib = grid_sample_call(slab_rows_in_bounds(args_slab_main))
+    slab_main_lib()
+    slab_main_lib_ms = cuda_ms(slab_main_lib, 10)
     pooled = rs.roialign_slab(*args_slab_main)
     fb_ms = cuda_ms(lambda: conv3d_fc(pooled, conv1.weight,
                                       out_dtype=torch.float32), 5)
     del pooled
     phase("time", f"monolithic classifier parts: slab kernel on the path's "
           f"{int(args_slab_main[-1][1])} fallback rows {slab_main_ms:.4f} ms "
-          f"(bound {slab_main_bound[0]:.4f} ms, {slab_main_bound[2]}); "
+          f"(bound {slab_main_bound[0]:.4f} ms, {slab_main_bound[2]}; "
+          f"library {slab_main_lib_ms:.4f} ms); "
           f"fallback conv3d_fc over all {args_slab_main[0].shape[0]} rows "
           f"(float32) {fb_ms:.4f} ms")
 
@@ -947,6 +1009,11 @@ def main() -> int:
             "library_ms": library_ms})
         if name == "roialign_fc (separable)":
             kernels[-1]["same_launch_as"] = "roialign_fc (kron)"
+        if name == "roialign_slab":  # timed above on the forced fallback
+            kernels[-1]["main_path"] = {
+                "rows": int(args_slab_main[-1][1]), "ms": slab_main_ms,
+                "bound_ms": slab_main_bound[0],
+                "library_ms": slab_main_lib_ms}
         if name == CHUNK_FC:
             kernels[-1]["timing_only"] = (
                 "roialign_fc on the adaptive classifier's first chunk; the "

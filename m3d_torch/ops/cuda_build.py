@@ -23,7 +23,6 @@ CSRC = os.path.join(PKG, "csrc")
 BUILD_DIR = os.path.join(PKG, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-MAX_ROWS = 65535  # grid.y limit of the kernels that put rows on grid.y
 
 P = ctypes.c_void_p
 I = ctypes.c_int

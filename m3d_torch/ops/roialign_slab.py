@@ -27,8 +27,8 @@ from __future__ import annotations
 
 import torch
 
-from m3d_torch.ops.cuda_build import (MAX_ROWS, CudaLibrary, I, LaunchCount,
-                                      P, on_card, stream_of)
+from m3d_torch.ops.cuda_build import (CudaLibrary, I, LaunchCount, P,
+                                      on_card, stream_of)
 from m3d_torch.ops.roialign_compact import flatten_pyramid
 
 LIB = CudaLibrary("roialign_slab", {
@@ -70,8 +70,6 @@ def check_slab_inputs(levels, batch_idx, origins, wy, wx, wz, feature_maps,
                 or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous int32 {shape} "
                              f"on {dev}")
-    if n > MAX_ROWS:
-        raise ValueError(f"at most {MAX_ROWS} rows per launch, got {n}")
     return n, p, (wy.shape[2], wx.shape[2], wz.shape[2]), c
 
 

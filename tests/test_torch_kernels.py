@@ -448,3 +448,67 @@ def test_compact_kernel_at_bench_shape_on_card(total):
         ref_p = TC.roialign_compact_plain(levels, bat_p, tt, pos,
                                           [f.float() for f in feats])
         assert (pad - ref_p).abs().max() <= 1e-2 * ref_p.abs().max()
+
+
+def _dense_random(rng, w, rows):
+    """w with the given rows replaced by random weights, ~30 % of each row's
+    columns nonzero: far more than two taps a sample (the general path)."""
+    w = w.clone()
+    shape = (len(rows),) + tuple(w.shape[1:])
+    w[rows] = T((rng.randn(*shape) * (rng.uniform(size=shape) < 0.3))
+                .astype(np.float32))
+    return w
+
+
+def _bench_slab_args(rng, feats, n, bounds, tier, general=None):
+    """Slab-kernel inputs at the bench shapes: n rows over all four levels,
+    origins and weights for ``tier`` (capped at the exact-coverage slab) as
+    axis_slab_weights places them; ``general`` "all" or "mixed" (every third
+    row) replaces rows' weights by dense random ones."""
+    levels = T((np.arange(n) % 4).astype(np.int32))
+    bat = T(np.sort(rng.randint(0, 4, n)).astype(np.int32))
+    lo = rng.uniform(0, 0.6, (n, 3)).astype(np.float32)
+    boxes = T(np.concatenate([lo, lo + rng.uniform(0.05, 0.35, (n, 3))], 1)
+              .astype(np.float32))
+    cpu = [f[:1].cpu() for f in feats]  # geometry only needs the shapes
+    slab, pdims = TR._slab_geometry(cpu)
+    tier = tuple(min(a, b) for a, b in zip(tier, slab))
+    rd, pos = TR._level_positions(boxes, levels, cpu, 7)
+    origins, *ws = TR._slab_weights(pos, rd, pdims[levels.long()], tier)
+    if general is not None:
+        rows = np.arange(n) if general == "all" else np.arange(0, n, 3)
+        ws = [_dense_random(rng, w, rows) for w in ws]
+    return _to_card([levels, bat, origins, *ws]) + [
+        feats, torch.tensor(bounds, dtype=torch.int32, device="cuda")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,tier,bounds,general", [
+    (256, (32, 32, 32), (0, 0), None), (256, (32, 32, 32), (0, 1), None),
+    (256, (32, 32, 32), (0, 2000), None),
+    (256, (32, 32, 32), (700, 600), None),
+    (256, (32, 32, 32), (0, 2000), "all"),
+    (256, (32, 32, 32), (100, 1800), "mixed"),
+    (256, (8, 8, 16), (0, 2000), None), (256, (16, 16, 24), (0, 2000), None),
+    (10, (32, 32, 32), (0, 2000), None), (10, (32, 32, 32), (300, 900),
+                                          "mixed")])
+def test_slab_kernel_at_bench_shapes_on_card(c, tier, bounds, general):
+    """The redesigned slab kernel at the main path's shapes (2000 rows,
+    p = 7, exact-coverage slab (32, 32, 32) and the two smaller tiers)
+    against its plain version: fast rows (axis_slab_weights' two-tap form),
+    general rows (dense random weights), both in one batch, and C = 10 (the
+    two-channel path). Tolerance one bf16 rounding of the largest output;
+    rows outside bounds exactly zero; one launch counted."""
+    _needs_card()
+    rng = np.random.RandomState(50 + c + bounds[1])
+    feats = _bench_pyramid(rng, c)
+    args = _bench_slab_args(rng, feats, 2000, bounds, tier, general)
+    before = TS.KERNEL.launches
+    got = TS.roialign_slab(*args).float()
+    assert TS.KERNEL.launches == before + 1
+    ref = TS.roialign_slab_plain(*args[:6], [f.float() for f in feats],
+                                 args[7])
+    lo, hi = bounds[0], bounds[0] + bounds[1]
+    assert (got[:lo] == 0).all() and (got[hi:] == 0).all()
+    assert torch.isfinite(got).all()
+    assert (got - ref).abs().max() <= 1e-2 * max(ref.abs().max(), 1e-30)

@@ -261,3 +261,63 @@ def test_fc_wrapper_bounds_and_weight_order():
                                atol=1e-5)
     assert (got[:3] == 0).all() and (got[9:] == 0).all()
     assert got[3:9].abs().sum() > 0
+
+
+def _shape_pyramid(shapes):
+    """Levels of the given (H, W, D) extents; only their shapes are read."""
+    return [torch.zeros(1, *s, 1) for s in shapes]
+
+
+BENCH_LEVELS = [(32, 32, 32), (16, 16, 16), (8, 8, 8), (4, 4, 4)]
+# z-stride-1 pyramid whose depth is no multiple of 8: the exact-coverage
+# slab is (32, 32, 40) and the levels are padded in z to place origins.
+ANISO_LEVELS = [(32, 32, 36), (16, 16, 36), (8, 8, 36), (4, 4, 36)]
+
+
+@pytest.mark.parametrize("levels_shape,tier", [
+    (BENCH_LEVELS, (8, 8, 16)), (BENCH_LEVELS, (16, 16, 24)),
+    (BENCH_LEVELS, (32, 32, 32)), (ANISO_LEVELS, None)])
+def test_slab_weights_have_at_most_two_taps_at_i0_i1(levels_shape, tier):
+    """The slab kernel's fast path rests on this: for random boxes on all
+    four levels, every (row, axis, sample) of the weights the slab callers
+    make (_slab_weights at a tier size, or at the exact-coverage slab) has
+    at most 2 nonzero taps inside the level, at columns i0 and
+    i1 = min(i0 + 1, slab - 1, dim - 1 - origin) of the clamped position;
+    weights and origins are JAX's _axis_slab_weights'."""
+    rng = np.random.RandomState(21)
+    n = 400
+    fms = _shape_pyramid(levels_shape)
+    lo = rng.uniform(-0.2, 0.9, (n, 3)).astype(np.float32)
+    boxes = np.concatenate([lo, lo + rng.uniform(0.0, 1.0, (n, 3))
+                            .astype(np.float32)], 1)
+    boxes[: n // 2] = boxes[: n // 2].clip(0.0, 1.0)  # samples on 0 and dim-1
+    boxes = T(boxes)
+    levels = T((np.arange(n) % 4).astype(np.int32))
+    slab, pdims_lut = TR._slab_geometry(fms)
+    tier = slab if tier is None else tier
+    pdims = pdims_lut[levels.long()]
+    rd, pos = TR._level_positions(boxes, levels, fms, 7)
+    origins, *ws = TR._slab_weights(pos, rd, pdims, tier)
+    for a, w in enumerate(ws):
+        dim = rd[:, a].float()
+        jo, jw = JR._axis_slab_weights(
+            pos[a].numpy(), dim.numpy(), tier[a], align=8 if a == 2 else 1,
+            origin_dim=pdims[:, a].float().numpy())
+        np.testing.assert_array_equal(origins[:, a].numpy(), np.asarray(jo))
+        np.testing.assert_allclose(w.numpy(), np.asarray(jw), rtol=0,
+                                   atol=1e-6)
+        org = origins[:, a].float()[:, None]
+        coords = org[..., None] + torch.arange(tier[a]).float()
+        kept = (w != 0) & (coords >= 0) & (coords < dim[:, None, None])
+        assert int(kept.sum(-1).max()) <= 2
+        pc = torch.minimum(pos[a].clamp_min(0.0), dim[:, None] - 1.0)
+        i0 = torch.floor((pc - org).clamp(0.0, tier[a] - 1.0))
+        i1 = torch.minimum(i0 + 1.0, torch.clamp_max(
+            dim[:, None] - 1.0 - org, float(tier[a] - 1)))
+        cols = torch.arange(tier[a]).float()
+        at_taps = (cols == i0[..., None]) | (cols == i1[..., None])
+        assert not (kept & ~at_taps).any()
+        # Some positions use both taps, some one (a sample on a voxel, or
+        # at the level's last voxel), some none (outside the level).
+        per = kept.sum(-1)
+        assert (per == 2).any() and (per == 1).any() and (per == 0).any()
