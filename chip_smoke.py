@@ -45,10 +45,26 @@ seconds:
               kernel's / plain / library ms beside its bound, all timed
               with CUDA events; the adaptive classifier chunk's plain
               gather + conv1 beside the fused kernel on the same rows
+  eval        writes the bench volumes (seeds 1000-1003) as an on-disk
+              dataset with the port's generator into a temporary directory,
+              all four the test split, and runs
+              ``python -m m3d_torch --task MRCNN_EVALUATION`` in-process on
+              configs/milestone128/mrcnn_eval_synth128_resume.json with the
+              tracked checkpoint: once as configured (the compact kernel),
+              once with CLASSIFIER_CHUNK 0 and MASK_CHUNK 0 (the fused and
+              padded kernels, the slab kernel for fallback rows). Each run
+              must evaluate all four volumes, write their label TIFFs and
+              CSVs and the summary, reach det_recall >= 0.7 and launch its
+              kernels; prints both summaries and each image's seconds by
+              stage (load, inference by CUDA events, unmold, metrics,
+              artifacts)
+  rpn_eval    RPN_EVALUATION on configs/milestone128/rpn_synth128.json and
+              the same data: det@0.5_top500 >= 0.7
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
-Writes nothing into the tree but m3d_torch/_build/.
+Writes nothing into the tree but m3d_torch/_build/; the evaluation dataset
+and its artifacts live in a temporary directory that is removed at the end.
 """
 
 from __future__ import annotations
@@ -59,6 +75,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -84,6 +101,13 @@ REPLACES = {"roialign_compact": f"{PALLAS}:1022",     # _kernel_vmem_compact
             "roialign_slab": f"{PALLAS}:42",          # _kernel
             "roialign_fc (separable)": f"{PALLAS}:273",  # _kernel_slab_fc
             CHUNK_FC: f"{PALLAS}:497"}
+
+EVAL_CONFIG = "configs/milestone128/mrcnn_eval_synth128_resume.json"
+RPN_CONFIG = "configs/milestone128/rpn_synth128.json"
+CHECKPOINT = "weights/bench_ckpt.f16.msgpack"
+EVAL_IMAGES, EVAL_SEED = 4, 1000  # the bench volumes: make_volumes(4, 128)
+EVAL_STAGES = ("load", "inference", "unmold", "metrics", "artifacts")
+EVAL_METRIC_TOL = 1e-3     # |adaptive - monolithic| pixel metrics and dice
 
 T0 = time.perf_counter()
 
@@ -581,6 +605,132 @@ class Spy:
             setattr(self.mod, n, fn)
 
 
+def launch_counts() -> dict:
+    from m3d_torch.ops import roialign_compact as rc
+    from m3d_torch.ops import roialign_fc as rf
+    from m3d_torch.ops import roialign_slab as rs
+
+    return {"roialign_compact": rc.KERNEL.launches,
+            "roialign_padded": rc.PADDED.launches,
+            "roialign_fc (kron)": rf.KERNEL.launches,
+            "roialign_slab": rs.KERNEL.launches}
+
+
+def write_config(src: str, path: str, **keys) -> str:
+    """The JSON config ``src`` with ``keys`` replaced, written to ``path``."""
+    with open(src) as f:
+        cfg = json.load(f)
+    cfg.update(keys)
+    with open(path, "w") as f:
+        json.dump(cfg, f, indent=1)
+    return path
+
+
+# Per path kernel: (launch-count key, Spy name, check against the plain
+# version).
+EVAL_CHECKS = (("roialign_compact", "roialign_compact", compare),
+               ("roialign_fc (kron)", "roialign_fc", compare_fc),
+               ("roialign_padded", "roialign_padded", compare_padded),
+               ("roialign_slab", "roialign_slab", compare_slab))
+
+
+def eval_run(here: str, tmp: str, label: str, smi: str, errs: dict, **keys):
+    """One MRCNN_EVALUATION through the port's CLI, in this process. Every
+    kernel call of the run (B = 1) is held against its plain version and its
+    error added to ``errs``. Returns (kernel launches, summary)."""
+    from m3d_torch import __main__ as cli
+    from m3d_torch.utils.tiffio import imread_volume
+
+    out_dir = os.path.join(tmp, f"out_{label}")
+    ckpt = os.path.join(here, CHECKPOINT)
+    path = write_config(
+        os.path.join(here, EVAL_CONFIG), os.path.join(tmp, f"{label}.json"),
+        DATA_DIR=os.path.join(tmp, "data"), OUTPUT_DIR=out_dir,
+        WEIGHT_DIR=os.path.join(out_dir, "weights"), RPN_WEIGHTS=ckpt,
+        HEAD_WEIGHTS=ckpt, **keys)
+    t = time.perf_counter()
+    reset_counts()
+    spy = Spy()
+    try:
+        res = cli.main(["--task", "MRCNN_EVALUATION", "--config_path", path])
+        torch.cuda.synchronize()
+    finally:
+        spy.restore()
+    launches = launch_counts()
+    wall = time.perf_counter() - t
+    summary, per_image, times = res["summary"], res["per_image"], res["times"]
+    phase("eval", f"{label} {dict(keys)}: {wall:.2f}s, "
+          f"{len(per_image)} of {EVAL_IMAGES} images, kernel launches "
+          f"{launches}")
+    print(f"[{smi}] eval {label} summary: {json.dumps(summary)}", flush=True)
+    for i, (r, tm) in enumerate(zip(per_image, times)):
+        split = {k: round(tm.get(k, 0.0), 4) for k in EVAL_STAGES}
+        phase("eval", f"{label} image {i}: {r['n_detections']} detections, "
+              f"{r['n_gt']} GT, seconds {split}")
+    mean = {k: float(np.mean([tm.get(k, 0.0) for tm in times]))
+            for k in EVAL_STAGES}
+    phase("eval", f"{label} mean seconds per image {mean} "
+          f"(inference by CUDA events)")
+    if len(per_image) != EVAL_IMAGES:
+        raise AssertionError(f"eval {label}: {len(per_image)} of "
+                             f"{EVAL_IMAGES} images evaluated")
+    names = [str(i).zfill(6) for i in range(EVAL_IMAGES)]
+    want = [f"{n}.{ext}" for n in names for ext in ("tiff", "csv")]
+    want.append("evaluation_summary.json")
+    try:
+        import matplotlib  # noqa: F401
+        want += [f"overlays/{n}_masks_overlay.png" for n in names]
+    except ImportError:
+        pass
+    absent = [w for w in want if not os.path.exists(os.path.join(out_dir, w))]
+    if absent:
+        raise AssertionError(f"eval {label}: artifacts missing: {absent}")
+    label_vol = imread_volume(os.path.join(out_dir, f"{names[0]}.tiff"))
+    if label_vol.shape != (SIZE,) * 3 or label_vol.dtype != np.uint16:
+        raise AssertionError(f"eval {label}: label TIFF reads back as "
+                             f"{label_vol.shape} {label_vol.dtype}")
+    if summary["det_recall"] < RECALL_FLOOR:
+        raise AssertionError(f"eval {label}: det_recall "
+                             f"{summary['det_recall']:.4f} < {RECALL_FLOOR}")
+    # The path's own kernel inputs: a wrapper launches once for each call
+    # with rows (none for zero rows), and every such call is checked.
+    for key, name, check in EVAL_CHECKS:
+        calls = [a for a in spy.calls[name] if a[0].shape[0]]
+        if len(calls) != launches[key]:
+            raise AssertionError(f"eval {label}: {len(calls)} {name} calls "
+                                 f"with rows, {launches[key]} launches")
+        for i, args in enumerate(calls):
+            errs[key].append(check(args, f"eval {label} captured {name} "
+                                         f"inputs, call {i}"))
+    return launches, summary
+
+
+def rpn_eval_run(here: str, tmp: str, smi: str):
+    """RPN_EVALUATION through the port's CLI, in this process. Returns the
+    kernel launches of the run."""
+    from m3d_torch import __main__ as cli
+
+    path = write_config(
+        os.path.join(here, RPN_CONFIG), os.path.join(tmp, "rpn.json"),
+        DATA_DIR=os.path.join(tmp, "data"),
+        OUTPUT_DIR=os.path.join(tmp, "out_rpn"),
+        WEIGHT_DIR=os.path.join(tmp, "out_rpn", "weights"),
+        RPN_WEIGHTS=os.path.join(here, CHECKPOINT))
+    t = time.perf_counter()
+    reset_counts()
+    metrics = cli.main(["--task", "RPN_EVALUATION", "--config_path", path])
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    phase("rpn_eval", f"{time.perf_counter() - t:.2f}s kernel launches "
+          f"{launches}")
+    print(f"[{smi}] rpn_eval metrics: {json.dumps(metrics)}", flush=True)
+    if metrics["det@0.5_top500"] < RECALL_FLOOR:
+        raise AssertionError(f"rpn_eval det@0.5_top500 "
+                             f"{metrics['det@0.5_top500']:.4f} < "
+                             f"{RECALL_FLOOR}")
+    return launches
+
+
 def matched_detections(det_ref, valid_ref, det, valid) -> int:
     """Valid detections of ``det`` that overlap a valid detection of
     ``det_ref`` in the same volume at IoU >= 0.5."""
@@ -649,6 +799,14 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"x{torch.cuda.device_count()}")
     print(smi, flush=True)
+    host_modules = {}
+    for mod in ("PIL", "matplotlib", "scipy"):
+        try:
+            __import__(mod)
+            host_modules[mod] = "imports"
+        except ImportError as e:
+            host_modules[mod] = f"absent ({e})"
+    phase("env", f"host modules {host_modules}")
 
     from m3d_torch.anchors import normalized_pyramid_anchors
     from m3d_torch.checkpoints import (load_params, params_from_jax,
@@ -1020,6 +1178,47 @@ def main() -> int:
                 "adaptive path runs the plain gather there")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{smi}] peak memory {peak:.2f} GiB", flush=True)
+
+    # eval / rpn_eval: the evaluation tasks through the port's CLI --------
+    from m3d_torch.data.synthetic import generate_experiment, split_dataset
+
+    with tempfile.TemporaryDirectory(prefix="m3d_eval_") as tmp:
+        t = time.perf_counter()
+        generate_experiment(EVAL_IMAGES, SIZE, os.path.join(tmp, "data"),
+                            seed=EVAL_SEED)
+        split_dataset(os.path.join(tmp, "data"), test_ratio=1.0)
+        phase("eval", f"dataset of {EVAL_IMAGES} volumes {SIZE}^3 written "
+              f"in {time.perf_counter() - t:.2f}s")
+        eval_launch, eval_sum = eval_run(here, tmp, "adaptive", smi, errs)
+        mono_launch, mono_sum = eval_run(here, tmp, "monolithic", smi, errs,
+                                         CLASSIFIER_CHUNK=0, MASK_CHUNK=0)
+        rpn_launch = rpn_eval_run(here, tmp, smi)
+    # The two graphs compute the same function: equal detection counts,
+    # pixel metrics and dice within EVAL_METRIC_TOL (bf16 order only).
+    for key in ("det_tp", "det_fp", "det_fn"):
+        if eval_sum[key] != mono_sum[key]:
+            raise AssertionError(f"eval runs disagree on {key}: "
+                                 f"{eval_sum[key]} vs {mono_sum[key]}")
+    for key in ("pixel_precision", "pixel_recall", "pixel_f1", "pixel_iou",
+                "instance_dice"):
+        if abs(eval_sum[key] - mono_sum[key]) > EVAL_METRIC_TOL:
+            raise AssertionError(f"eval runs disagree on {key}: "
+                                 f"{eval_sum[key]} vs {mono_sum[key]}")
+    phase("eval", f"both runs agree: det_tp/fp/fn equal, pixel metrics and "
+          f"instance_dice within {EVAL_METRIC_TOL}")
+    for key, n in (("adaptive", eval_launch["roialign_compact"]),
+                   ("monolithic", mono_launch["roialign_fc (kron)"]),
+                   ("monolithic", mono_launch["roialign_padded"])):
+        if n < 1:
+            raise AssertionError(f"eval {key}: a kernel of its path was not "
+                                 f"launched: {eval_launch} {mono_launch}")
+    for k in kernels:
+        name = k["name"]
+        k["eval_launches"] = {
+            "eval": eval_launch.get(name, 0),
+            "eval (CLASSIFIER_CHUNK 0, MASK_CHUNK 0)": mono_launch.get(
+                name, 0),
+            "rpn_eval": rpn_launch.get(name, 0)}
 
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()

@@ -1,0 +1,88 @@
+"""CLI task dispatcher of the port (the surface of main.py).
+
+    python -m m3d_torch --task {RPN_TRAINING, RPN_EVALUATION,
+                                TARGET_GENERATION, HEAD_TRAINING,
+                                MRCNN_TRAINING, MRCNN_EVALUATION}
+                        --config_path configs/....json [--summary]
+                        [--device {cuda,cpu}]
+
+The same JSON configs, on-disk datasets and artifacts as main.py. The two
+evaluation tasks are ported; the four training tasks exit non-zero. The
+model runs on the card unless ``--device cpu`` is given; with no card and no
+``--device cpu`` the command exits non-zero before it reads or writes
+anything. ``main(argv)`` returns the task's result (MRCNN_EVALUATION:
+{"summary", "per_image", "times"}; RPN_EVALUATION: the metrics dict), so a
+caller in the same process can read the kernels' launch counters after it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import torch
+
+TASKS = (
+    "RPN_TRAINING",
+    "RPN_EVALUATION",
+    "TARGET_GENERATION",
+    "HEAD_TRAINING",
+    "MRCNN_TRAINING",
+    "MRCNN_EVALUATION",
+)
+PORTED = ("RPN_EVALUATION", "MRCNN_EVALUATION")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        prog="python -m m3d_torch",
+        description="m3d 3D Mask R-CNN, PyTorch/CUDA port")
+    parser.add_argument("--task", required=True, choices=TASKS)
+    parser.add_argument("--config_path", required=True)
+    parser.add_argument("--summary", action="store_true",
+                        help="print the config and model summary, then exit")
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help="where the model runs (default: the card)")
+    args = parser.parse_args(argv)
+
+    if args.task not in PORTED:
+        raise SystemExit(f"{args.task}: not ported yet (ROADMAP.md §1); "
+                         f"run it with main.py")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: torch.cuda.is_available() is False "
+                         "(no usable NVIDIA card); pass --device cpu to run "
+                         "on the CPU")
+
+    from m3d_torch.config import load_config
+
+    config = load_config(args.config_path)
+    if args.summary:
+        config.display()
+
+    if args.task == "RPN_EVALUATION":
+        from m3d_torch.train.rpn import RPNTrainer
+        from m3d_torch.utils.metrics import rpn_evaluation
+
+        trainer = RPNTrainer(config, device=args.device)
+        if args.summary:
+            return None
+        trainer.init_variables()
+        predict = trainer.make_proposal_fn()
+        _, test_ds = trainer.prepare_datasets()
+        metrics = rpn_evaluation(predict, test_ds, config,
+                                 max_images=int(config.EVALUATION_STEPS))
+        print(json.dumps(metrics, indent=2))
+        return metrics
+
+    from m3d_torch.train.mrcnn import MrcnnTrainer
+
+    trainer = MrcnnTrainer(config, device=args.device)
+    if args.summary:
+        return None
+    summary, per_image = trainer.evaluate()
+    return {"summary": summary, "per_image": per_image,
+            "times": trainer.times}
+
+
+if __name__ == "__main__":
+    main()

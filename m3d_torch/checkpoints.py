@@ -1,5 +1,6 @@
 """Flax msgpack checkpoints -> torch state dicts (port of the loading half of
-m3d/train/checkpoints.py: ``load_params`` and ``restore_by_name``).
+m3d/train/checkpoints.py: ``load_params``, ``restore_by_name`` with its
+class-dim slicing, ``infer_head_params`` and ``autoconfigure_heads``).
 
 The JAX package saves its parameter trees with
 ``flax.serialization.msgpack_serialize``. This module reads those files with
@@ -185,22 +186,93 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
     return out
 
 
-def restore_by_name(model: torch.nn.Module, state: dict[str, torch.Tensor]):
-    """Copy ``state`` into ``model`` by exact name with shape checks.
+def _try_class_slice(src: torch.Tensor, dst: torch.Tensor):
+    """Slice src down to dst when they differ in exactly one axis and src is
+    larger there (class-count change, core/models.py:5064-5141)."""
+    if src.ndim != dst.ndim:
+        return None
+    diff = [i for i in range(src.ndim) if src.shape[i] != dst.shape[i]]
+    if len(diff) != 1:
+        return None
+    ax = diff[0]
+    if src.shape[ax] < dst.shape[ax]:
+        return None
+    return src.narrow(ax, 0, dst.shape[ax])
 
-    Returns stats {"loaded", "skipped", "missing"}: checkpoint tensors
-    copied, checkpoint tensors with no same-shaped counterpart, and model
-    tensors the checkpoint does not hold.
+
+def restore_by_name(model: torch.nn.Module, state: dict[str, torch.Tensor]):
+    """Copy ``state`` into ``model`` by exact name with shape checks; a
+    tensor larger than its target in one axis only is sliced down to it
+    (class-count change), as the JAX package's ``restore_by_name`` does.
+
+    Returns stats {"loaded", "sliced", "skipped", "missing"}: checkpoint
+    tensors copied whole, checkpoint tensors copied sliced, checkpoint
+    tensors with no counterpart of a usable shape, and model tensors the
+    checkpoint does not hold.
     """
     own = model.state_dict()
-    stats = {"loaded": 0, "skipped": 0, "missing": 0}
+    stats = {"loaded": 0, "sliced": 0, "skipped": 0, "missing": 0}
     with torch.no_grad():
         for key, val in state.items():
             tgt = own.get(key)
-            if tgt is None or tuple(tgt.shape) != tuple(val.shape):
+            if tgt is None:
                 stats["skipped"] += 1
-                continue
-            tgt.copy_(val)
-            stats["loaded"] += 1
+            elif tuple(tgt.shape) == tuple(val.shape):
+                tgt.copy_(val)
+                stats["loaded"] += 1
+            elif (part := _try_class_slice(val, tgt)) is not None:
+                tgt.copy_(part)
+                stats["sliced"] += 1
+            else:
+                stats["skipped"] += 1
     stats["missing"] = sum(1 for k in own if k not in state)
     return stats
+
+
+def infer_head_params(path: str) -> dict:
+    """Recover head hyperparameters (POOL_SIZE, FPN_CLASSIF_FC_LAYERS_SIZE,
+    HEAD_CONV_CHANNEL, NUM_CLASSES, TOP_DOWN_PYRAMID_SIZE) from a msgpack
+    checkpoint's kernel shapes, the reference's introspection that adapts a
+    config to the head widths a checkpoint was trained with
+    (core/models.py:5144-5203). Reference .h5 files are not read yet."""
+    if path.endswith((".h5", ".hdf5")):
+        raise NotImplementedError(f"{path}: .h5 checkpoints are not ported "
+                                  f"yet (ROADMAP.md §1)")
+    tree, _ = load_params(path)
+    found: dict = {}
+    for keys, val in _flatten(tree):
+        key = "/".join(keys)
+        val = np.asarray(val)
+        if key.endswith("mrcnn_class_conv1/kernel") and val.ndim == 5:
+            found["POOL_SIZE"] = int(val.shape[0])
+            found["FPN_CLASSIF_FC_LAYERS_SIZE"] = int(val.shape[-1])
+            found["TOP_DOWN_PYRAMID_SIZE"] = int(val.shape[-2])
+        elif key.endswith("mrcnn_mask_conv1/kernel") and val.ndim == 5:
+            found["HEAD_CONV_CHANNEL"] = int(val.shape[-1])
+        elif key.endswith("mrcnn_class_logits/kernel") and val.ndim == 2:
+            found["NUM_CLASSES"] = int(val.shape[-1])
+    return found
+
+
+def autoconfigure_heads(config, paths):
+    """Override config head hyperparameters from the first checkpoint that
+    declares them. Returns the set of overridden keys."""
+    overridden = set()
+    for path in paths:
+        if not path or not os.path.exists(path):
+            continue
+        try:
+            found = infer_head_params(path)
+        except Exception as e:  # noqa: BLE001 — introspection is best-effort
+            print(f"[autoconfigure_heads] {path}: {e}")
+            continue
+        for key, val in found.items():
+            if key in overridden:
+                continue
+            cur = getattr(config, key, None)
+            if cur is not None and int(cur) != val:
+                print(f"[autoconfigure_heads] {key}: config {cur} -> "
+                      f"checkpoint {val} ({os.path.basename(path)})")
+                setattr(config, key, val)
+            overridden.add(key)
+    return overridden

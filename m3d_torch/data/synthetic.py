@@ -1,16 +1,35 @@
-"""Synthetic labeled volumes and their normalization (port of
-``create_volume`` in m3d/data/synthetic.py and ``normalize_volume`` in
-m3d/data/datasets.py; numpy and scipy only, no pandas).
+"""Synthetic labeled volumes, their on-disk dataset tree, and their
+normalization (port of m3d/data/synthetic.py and of ``normalize_volume`` in
+m3d/data/datasets.py; numpy and scipy only, no pandas, no PIL).
 
 Random ellipsoids / cuboids / pyramids (base size 15, scale range 2x, random
 3-axis rotation), non-overlapping placement, Poisson + Gaussian + uniform
-background noise, 8-bit volumes. The same seed gives the same volume as the
-JAX package's generator (tests/test_torch_host.py checks it).
+background noise, 8-bit volumes. The same seed gives the same volume, and
+``generate_experiment`` the same files, as the JAX package's generator
+(tests/test_torch_host.py, tests/test_torch_data.py):
+
+  images/NNNNNN.tiff           uint8 volume, (Z, Y, X) pages
+  seg/NNNNNN.tiff              uint8 instance-label volume
+  masks/NNNNNN.pickle          bz2-compressed pickle, float64 (Z, Y, X, N)
+  classes_and_boxes/NNNNNN.dat lines: cls  z1 y1 x1 z2 y2 x2 (tab-separated)
+  csvs/NNNNNN.csv              per-object stats
+  datasets/{train,test}.csv    manifests (split_dataset)
+
+    python -m m3d_torch.data.synthetic --train_dir DIR --train_image_nb N \
+        --image_size S [--image_depth D] [--seed K] [--split]
 """
 
 from __future__ import annotations
 
+import argparse
+import bz2
+import csv
+import os
+import pickle
+
 import numpy as np
+
+from m3d_torch.utils.tiffio import imwrite_volume
 
 BASE_SIZE = 15
 SCALE_RANGE = 2.0
@@ -180,6 +199,103 @@ def create_volume(image_shape, rng, num_max_objects=NUM_MAX_OBJECTS,
             np.asarray(class_ids, np.int64))
 
 
+def write_volume(out_dir: str, name: str, img, seg, masks, boxes, class_ids):
+    """Write one volume in the reference's on-disk formats.
+
+    The loader convention (core/data_generators.py:1603-1716) treats TIFFs and
+    mask pickles as (Z, Y, X[, N]) z-stacks — true for real microscopy — and
+    reads .dat columns with the reorder [2,3,1,5,6,4]. The reference's own
+    generator writes (Y, X, Z) arrays, which only round-trips because its
+    synthetic volumes are cubes; we write genuinely (Z, Y, X)-ordered files so
+    anisotropic synthetic volumes load correctly too.
+    """
+    imwrite_volume(os.path.join(out_dir, "images", f"{name}.tiff"),
+                   np.transpose(img, (2, 0, 1)))
+    imwrite_volume(os.path.join(out_dir, "seg", f"{name}.tiff"),
+                   np.transpose(seg, (2, 0, 1)))
+    with bz2.BZ2File(os.path.join(out_dir, "masks", f"{name}.pickle"), "w") as f:
+        pickle.dump(np.transpose(masks, (2, 0, 1, 3)).astype(np.float64), f)
+    # .dat column order (cls, z1, y1, x1, z2, y2, x2): the loader's
+    # [2,3,1,5,6,4] reorder then yields (y1,x1,z1,y2,x2,z2).
+    with open(os.path.join(out_dir, "classes_and_boxes", f"{name}.dat"), "w") as f:
+        for cls, b in zip(class_ids, boxes):
+            y1, x1, z1, y2, x2, z2 = b
+            f.write(f"{cls}\t{z1}\t{y1}\t{x1}\t{z2}\t{y2}\t{x2}\n")
+    # per-volume stats CSV (columns mirror generate_data.py:63-79)
+    with open(os.path.join(out_dir, "csvs", f"{name}.csv"), "w", newline="") as f:
+        wr = csv.writer(f)
+        wr.writerow(["", "image", "label", "class", "noise",
+                     "y1", "x1", "z1", "y2", "x2", "z2", "ryx", "ryz", "rxz"])
+        for i, (cls, b) in enumerate(zip(class_ids, boxes)):
+            wr.writerow([i, name, i + 1, cls, 0.0, *b, 1.0, 1.0, 1.0])
+
+
+def generate_experiment(train_image_nb: int, image_size, train_dir: str,
+                        seed: int = 0, image_depth=None,
+                        voxel_z_over_y: float = 1.0):
+    """Generate a dataset directory tree (reference: generate_data.py:200-220).
+
+    ``voxel_z_over_y`` > 1 generates anisotropic-acquisition volumes
+    (rats/HeLa regime — objects sized by XY, z-squashed by the factor)."""
+    for sub in ("classes_and_boxes", "seg", "masks", "images", "csvs"):
+        os.makedirs(os.path.join(train_dir, sub), exist_ok=True)
+    depth = image_depth or image_size
+    image_shape = (image_size, image_size, depth)
+    for i in range(train_image_nb):
+        rng = np.random.RandomState(seed + i)
+        name = str(i + 1).zfill(6)
+        write_volume(train_dir, name,
+                     *create_volume(image_shape, rng,
+                                    voxel_z_over_y=voxel_z_over_y))
+    return train_dir
+
+
+def split_dataset(data_dir: str, test_ratio: float = 0.2):
+    """Write datasets/{train,test}.csv manifests (reference: generate_datasets.py)."""
+    names = sorted(
+        os.path.splitext(f)[0] for f in os.listdir(os.path.join(data_dir, "images"))
+    )
+    perm = np.random.RandomState(0).permutation(len(names))
+    n_test = max(1, int(len(names) * test_ratio)) if len(names) > 1 else 0
+    splits = {
+        "test": [names[i] for i in perm[:n_test]],
+        "train": [names[i] for i in perm[n_test:]],
+    }
+    os.makedirs(os.path.join(data_dir, "datasets"), exist_ok=True)
+    for split, split_names in splits.items():
+        path = os.path.join(data_dir, "datasets", f"{split}.csv")
+        with open(path, "w", newline="") as f:
+            wr = csv.writer(f)
+            wr.writerow(["names", "images", "segs", "cabs", "masks"])
+            for nm in split_names:
+                wr.writerow([
+                    nm,
+                    os.path.join(data_dir, "images", f"{nm}.tiff"),
+                    os.path.join(data_dir, "seg", f"{nm}.tiff"),
+                    os.path.join(data_dir, "classes_and_boxes", f"{nm}.dat"),
+                    os.path.join(data_dir, "masks", f"{nm}.pickle"),
+                ])
+    return data_dir
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Write a synthetic labeled-volume dataset tree")
+    parser.add_argument("--train_dir", type=str, default="./data/")
+    parser.add_argument("--train_image_nb", type=int, default=100)
+    parser.add_argument("--image_size", type=int, default=128)
+    parser.add_argument("--image_depth", type=int, default=None)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--voxel_z_over_y", type=float, default=1.0)
+    parser.add_argument("--split", action="store_true",
+                        help="also write datasets/{train,test}.csv")
+    args = parser.parse_args(argv)
+    generate_experiment(args.train_image_nb, args.image_size, args.train_dir,
+                        args.seed, args.image_depth, args.voxel_z_over_y)
+    if args.split:
+        split_dataset(args.train_dir)
+
+
 def normalize_volume(image: np.ndarray) -> np.ndarray:
     """Percentile clip [1,99] -> z-score -> tanh(x*0.5), float32 [...,1].
 
@@ -225,3 +341,7 @@ def proposal_like_boxes(rng: np.random.RandomState, n: int,
     hi = np.clip(lo + size[k] * rng.uniform(0.85, 1.15, (n, 3)), 0.0, 1.0)
     return np.concatenate([lo, np.maximum(hi, lo + 1e-3)],
                           -1).astype(np.float32)
+
+
+if __name__ == "__main__":
+    main()

@@ -35,6 +35,20 @@ def default_chunks(model: MaskRCNN):
     return cls, mask
 
 
+def chunks_from_config(config, model: MaskRCNN):
+    """Config-overridable chunk sizes: CLASSIFIER_CHUNK / MASK_CHUNK keys
+    (0 = force monolithic, absent/None = the ``default_chunks`` values)."""
+    auto_cls, auto_mask = default_chunks(model)
+
+    def pick(key, auto):
+        v = getattr(config, key, None)
+        if v is None:
+            return auto
+        return int(v) or None
+
+    return pick("CLASSIFIER_CHUNK", auto_cls), pick("MASK_CHUNK", auto_mask)
+
+
 def chunked_roi_stage(apply_chunk, rois, n_live: int, chunk: int):
     """Apply a per-ROI stage over chunks of axis 1 of ``rois`` [B, N, ...],
     skipping chunks that start at or beyond ``n_live`` (a host int).

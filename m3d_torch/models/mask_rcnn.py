@@ -8,7 +8,8 @@ composable stages m3d_torch/models/inference.py chains: ``extract_features``,
 and ``apply_mask_head``; and the monolithic graph's stages,
 ``classify_rois`` (fused ROIAlign + FC kernel) and ``mask_rois`` (padded
 ROIAlign kernel), which ``forward`` (JAX's ``__call__``) chains over every
-padded slot.
+padded slot. ``forward_rpn`` stops after the proposals (RPN evaluation).
+``init_params`` seeds the weights no checkpoint covers.
 """
 
 from __future__ import annotations
@@ -189,6 +190,24 @@ class MaskRCNN(nn.Module):
         return self.mask_head(aligned)
 
     @torch.no_grad()
+    def forward_rpn(self, image, anchors):
+        """RPN forward with proposal generation (JAX
+        ``MaskRCNN.forward_rpn``). image [B, H, W, D, C] and anchors [A, 6]
+        are tensors on the model's device. Returns the RPN outputs, the
+        proposals and the feature maps."""
+        feats = self.extract_features(image.float())
+        logits, probs, deltas = self.rpn_forward(list(feats))
+        proposals, valid = self.propose(probs, deltas, anchors)
+        return {
+            "rpn_class_logits": logits,
+            "rpn_probs": probs,
+            "rpn_bbox": deltas,
+            "proposals": proposals,
+            "proposals_valid": valid,
+            "feature_maps": feats,
+        }
+
+    @torch.no_grad()
     def forward(self, image, image_meta, anchors):
         """Monolithic inference (JAX ``MaskRCNN.__call__``): every padded
         proposal and detection slot is computed. image [B, H, W, D, C],
@@ -220,3 +239,19 @@ class MaskRCNN(nn.Module):
             "proposals": proposals,
             "proposals_valid": prop_valid,
         }
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, seed: int) -> nn.Module:
+    """Seeded initialisation of every weight of two or more axes:
+    normal with standard deviation 1 / sqrt(fan in), drawn on the CPU from
+    ``torch.Generator().manual_seed(seed)`` in ``named_parameters`` order,
+    so a seed gives the same weights on every device. Biases, BatchNorm
+    scales and statistics keep their constructor values (0, 1, 0, 1).
+    Checkpoints restored afterwards overwrite what they cover."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for _, p in model.named_parameters():
+        if p.ndim >= 2:
+            fan_in = p[0].numel()
+            p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
+    return model

@@ -204,22 +204,29 @@ def test_params_from_jax_layouts():
 def test_restore_by_name_counts():
     mod = torch.nn.Sequential()
     mod.add_module("a", torch.nn.Linear(3, 2))
-    state = {"a.weight": torch.ones(2, 3), "a.bias": torch.ones(5),
-             "b.weight": torch.ones(1)}  # a.bias: wrong shape; b: no module
+    mod.add_module("c", torch.nn.Linear(4, 3))
+    # a.bias: larger in its one axis, sliced down (a class-count change);
+    # b: no module; c.weight: smaller than its target, skipped; c.bias: not
+    # in the checkpoint.
+    state = {"a.weight": torch.ones(2, 3), "a.bias": torch.arange(5.0),
+             "b.weight": torch.ones(1), "c.weight": torch.ones(2, 4)}
     stats = t_ckpt.restore_by_name(mod, state)
-    assert stats == {"loaded": 1, "skipped": 2, "missing": 0}
+    assert stats == {"loaded": 1, "sliced": 1, "skipped": 2, "missing": 1}
     assert (mod.a.weight == 1).all()
+    assert mod.a.bias.tolist() == [0.0, 1.0]
+    assert not (mod.c.weight == 1).all()
 
 
-def test_port_imports_without_jax_flax_msgpack_pandas():
+def test_port_imports_without_jax_flax_msgpack_pandas(tmp_path):
     """m3d_torch and chip_smoke import in a Python where jax, flax, msgpack,
-    pandas and m3d cannot be imported."""
+    pandas, PIL and m3d cannot be imported, and there write and read back
+    one synthetic dataset volume on the numpy TIFF path."""
     code = (
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msgpack',"
-        " 'pandas', 'm3d'):\n"
+        " 'pandas', 'm3d', 'PIL'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import m3d_torch.models.inference, m3d_torch.checkpoints\n"
@@ -227,9 +234,30 @@ def test_port_imports_without_jax_flax_msgpack_pandas():
         "import m3d_torch.ops.roialign_compact, chip_smoke\n"
         "import m3d_torch.ops.roialign_slab, m3d_torch.ops.roialign_fc\n"
         "import m3d_torch.ops.roialign3d, m3d_torch.ops.cuda_build\n"
-        "import m3d_torch.models.mask_rcnn\n"
+        "import m3d_torch.models.mask_rcnn, m3d_torch.__main__\n"
+        "import m3d_torch.train.mrcnn, m3d_torch.train.rpn\n"
+        "import m3d_torch.data.datasets, m3d_torch.data.generators\n"
+        "import m3d_torch.utils.unmold, m3d_torch.utils.tiffio\n"
+        "from m3d_torch.data.synthetic import generate_experiment\n"
+        "from m3d_torch.data.datasets import ToyDataset\n"
+        "from m3d_torch.utils.tiffio import imread_volume\n"
+        "d = sys.argv[1]\n"
+        "generate_experiment(1, 64, d, seed=2, image_depth=8)\n"
+        "vol = imread_volume(d + '/images/000001.tiff')\n"
+        "assert vol.shape == (8, 64, 64) and vol.dtype.name == 'uint8'\n"
+        "ds = ToyDataset()\n"
+        "ds.add_image('dataset', 0, d + '/images/000001.tiff')\n"
+        "assert ds.load_image(0).shape == (64, 64, 8, 1)\n"
+        "assert 'PIL' not in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         cwd=REPO, env=env, capture_output=True, text=True,
+                         timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+    from m3d.utils.tiffio import imread_volume
+
+    np.testing.assert_array_equal(
+        imread_volume(str(tmp_path / "images" / "000001.tiff")),
+        t_syn.create_volume((64, 64, 8), np.random.RandomState(2))[0]
+        .transpose(2, 0, 1))
