@@ -60,6 +60,29 @@ seconds:
               artifacts)
   rpn_eval    RPN_EVALUATION on configs/milestone128/rpn_synth128.json and
               the same data: det@0.5_top500 >= 0.7
+  rpn_train   writes six more 128^3 volumes (seeds 2000-2005; four for
+              training, two for testing) and runs
+              ``python -m m3d_torch --task RPN_TRAINING`` in-process on
+              configs/milestone128/rpn_synth128_resume.json from the
+              tracked checkpoint for one epoch (two steps of B = 2): finite
+              losses, the epoch's det@0.5_top500 >= 0.7, every checkpoint
+              file, sidecar and the telemetry snapshot, and latest.msgpack
+              read back by the port giving the trained model's RPN outputs
+              exactly; the step split (forward, backward, optimiser)
+  e2e_train   HEAD_TRAINING (MODE training_head_e2e) on
+              configs/milestone128/heads_e2e_synth128_resume.json from the
+              tracked checkpoint, one epoch: finite losses, the padded
+              kernel launched 2 per train step and 2 per validation step,
+              each launch held against its plain version, every trunk leaf
+              of latest.msgpack bit-equal to the checkpoint's and some head
+              leaf changed
+  train_eval  MRCNN_EVALUATION on the bench volumes with the e2e run's
+              best.msgpack as HEAD_WEIGHTS: det_recall >= 0.7
+  e2e_fit     fresh heads (JAX's initialiser distributions) on the tracked
+              trunk and RPN, 20 e2e steps on one batch: the mean of the
+              last five losses below the first; the e2e step split
+Each training phase prints its step ms (CUDA events), the host ms to take
+each batch, the device's idle share and the peak memory.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -107,6 +130,14 @@ RPN_CONFIG = "configs/milestone128/rpn_synth128.json"
 CHECKPOINT = "weights/bench_ckpt.f16.msgpack"
 EVAL_IMAGES, EVAL_SEED = 4, 1000  # the bench volumes: make_volumes(4, 128)
 EVAL_STAGES = ("load", "inference", "unmold", "metrics", "artifacts")
+RPN_TRAIN_CONFIG = "configs/milestone128/rpn_synth128_resume.json"
+E2E_CONFIG = "configs/milestone128/heads_e2e_synth128_resume.json"
+# Training volumes: four for two training batches of 2, two for one test
+# batch (seeds 2000-2005, none of them a bench volume).
+TRAIN_IMAGES, TRAIN_SEED, TRAIN_TEST_RATIO = 6, 2000, 0.34
+FIT_STEPS = 20
+CKPT_FILES = ("latest.msgpack", "best.msgpack", "latest_head.msgpack",
+              "best_head.msgpack")
 EVAL_METRIC_TOL = 1e-3     # |adaptive - monolithic| pixel metrics and dice
 
 T0 = time.perf_counter()
@@ -643,11 +674,11 @@ def eval_run(here: str, tmp: str, label: str, smi: str, errs: dict, **keys):
 
     out_dir = os.path.join(tmp, f"out_{label}")
     ckpt = os.path.join(here, CHECKPOINT)
-    path = write_config(
-        os.path.join(here, EVAL_CONFIG), os.path.join(tmp, f"{label}.json"),
-        DATA_DIR=os.path.join(tmp, "data"), OUTPUT_DIR=out_dir,
-        WEIGHT_DIR=os.path.join(out_dir, "weights"), RPN_WEIGHTS=ckpt,
-        HEAD_WEIGHTS=ckpt, **keys)
+    keys = dict(dict(DATA_DIR=os.path.join(tmp, "data"), OUTPUT_DIR=out_dir,
+                     WEIGHT_DIR=os.path.join(out_dir, "weights"),
+                     RPN_WEIGHTS=ckpt, HEAD_WEIGHTS=ckpt), **keys)
+    path = write_config(os.path.join(here, EVAL_CONFIG),
+                        os.path.join(tmp, f"{label}.json"), **keys)
     t = time.perf_counter()
     reset_counts()
     spy = Spy()
@@ -659,7 +690,9 @@ def eval_run(here: str, tmp: str, label: str, smi: str, errs: dict, **keys):
     launches = launch_counts()
     wall = time.perf_counter() - t
     summary, per_image, times = res["summary"], res["per_image"], res["times"]
-    phase("eval", f"{label} {dict(keys)}: {wall:.2f}s, "
+    shown = {k: v for k, v in keys.items() if k not in
+             ("DATA_DIR", "OUTPUT_DIR", "WEIGHT_DIR", "RPN_WEIGHTS")}
+    phase("eval", f"{label} {shown}: {wall:.2f}s, "
           f"{len(per_image)} of {EVAL_IMAGES} images, kernel launches "
           f"{launches}")
     print(f"[{smi}] eval {label} summary: {json.dumps(summary)}", flush=True)
@@ -729,6 +762,345 @@ def rpn_eval_run(here: str, tmp: str, smi: str):
                              f"{metrics['det@0.5_top500']:.4f} < "
                              f"{RECALL_FLOOR}")
     return launches
+
+
+def train_timing(name: str, trainer, smi: str) -> dict:
+    """Print and return a training run's step split: each step's ms (CUDA
+    events) and host ms to take its batch, the median after the first
+    step, and the peak memory since the phase began. Fails on a
+    non-finite loss."""
+    recs = trainer.clock.records
+    losses = [r["loss"] for r in recs]
+    if not recs or not all(np.isfinite(losses)):
+        raise AssertionError(f"{name}: losses {losses}")
+    later = recs[1:] or recs
+    out = {"steps": len(recs),
+           "step_ms": [round(r["step_ms"], 3) for r in recs],
+           "host_ms": [round(r["host_ms"], 3) for r in recs],
+           "step_ms_median_after_first": float(np.median(
+               [r["step_ms"] for r in later])),
+           "host_ms_median_after_first": float(np.median(
+               [r["host_ms"] for r in later])),
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "losses": losses}
+    # With batch assembly on the caller's thread, the card idles while the
+    # host takes each batch.
+    busy = out["step_ms_median_after_first"]
+    out["device_idle_share"] = 1.0 - busy / (busy + out[
+        "host_ms_median_after_first"])
+    print(f"[{smi}] {name} timing: {json.dumps(out)}", flush=True)
+    return out
+
+
+def check_ckpt_files(name: str, wdir: str) -> None:
+    want = [f for c in CKPT_FILES for f in (c, c + ".json")]
+    want.append("telemetry.jsonl")
+    absent = [w for w in want if not os.path.exists(os.path.join(wdir, w))]
+    if absent:
+        raise AssertionError(f"{name}: files missing: {absent}")
+
+
+def _split_ms(stages, reps: int = 3) -> dict:
+    """Mean CUDA-event ms of each (name, fn) stage of one step, the stages
+    run in order, over ``reps`` steps after one warm-up step; each fn takes
+    the previous one's result."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(stages) + 1)]
+    total = {n: 0.0 for n, _ in stages}
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        ev[0].record()
+        x = None
+        for i, (_, fn) in enumerate(stages):
+            x = fn(x)
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        if rep:
+            for i, (n, _) in enumerate(stages):
+                total[n] += ev[i].elapsed_time(ev[i + 1]) / reps
+    return {n: round(v, 3) for n, v in total.items()}
+
+
+def rpn_step_split(trainer, batch) -> dict:
+    """The RPN train step's parts: forward with the losses, backward, the
+    optimiser's update (a new optimiser over the trained model)."""
+    from m3d_torch.models import losses as L
+    from m3d_torch.train.optim import Optimizer
+
+    model = trainer.model
+    opt = Optimizer(trainer.config, dict(model.named_parameters()))
+
+    def forward(_):
+        for p in model.parameters():
+            p.grad = None
+        out = model.forward_rpn_train(batch["image"])
+        return (L.rpn_class_loss(batch["rpn_match"],
+                                 out["rpn_class_logits"])[0]
+                + 1.5 * L.rpn_bbox_loss(batch["rpn_bbox"], batch["rpn_match"],
+                                        out["rpn_bbox"])[0])
+
+    return _split_ms([("forward + losses", forward),
+                      ("backward", lambda loss: loss.backward()),
+                      ("optimizer", lambda _: opt.step())])
+
+
+def e2e_step_split(trainer, opt, batch) -> dict:
+    """The e2e train step's parts, chained as HeadTrainer._e2e_outputs and
+    make_e2e_step chain them."""
+    from m3d_torch.models.detection_targets import detection_targets_batch
+    from m3d_torch.ops.roialign3d import pyramid_roi_align_auto
+    from m3d_torch.train.head import _is_frozen_for_e2e, head_losses
+    from m3d_torch.train.optim import apply_constraints
+
+    cfg, model = trainer.config, trainer.model
+    params = dict(model.named_parameters())
+    gen = torch.Generator(trainer.device).manual_seed(2)
+    active = torch.ones((batch["image"].shape[0], int(cfg.NUM_CLASSES)),
+                        device=trainer.device)
+    st = {}
+
+    def trunk(_):
+        with torch.no_grad():
+            st["rpn"] = model.forward_rpn(batch["image"], trainer._anchors_dev)
+
+    def targets(_):
+        with torch.no_grad():
+            st["t"] = detection_targets_batch(
+                st["rpn"]["proposals"], batch["gt_class_ids"],
+                batch["gt_boxes"], batch["gt_masks"], cfg.BBOX_STD_DEV,
+                int(cfg.TRAIN_ROIS_PER_IMAGE), float(cfg.ROI_POSITIVE_RATIO),
+                float(cfg.RPN_POSITIVE_IOU), float(cfg.RPN_NEGATIVE_IOU),
+                tuple(int(v) for v in cfg.MASK_SHAPE),
+                use_mini_mask=bool(cfg.USE_MINI_MASK), generator=gen)
+
+    def align(_):
+        feats = list(st["rpn"]["feature_maps"][:4])
+        meta = batch["image_meta"].float()
+        with torch.no_grad():
+            return [pyramid_roi_align_auto(st["t"]["rois"], meta, feats,
+                                           int(q)) for q in
+                    (cfg.POOL_SIZE, cfg.MASK_POOL_SIZE)]
+
+    def heads(aligned):
+        for p in params.values():
+            p.grad = None
+        out = model.forward_heads(*aligned)
+        t = st["t"]
+        return head_losses(cfg, out, {"target_class_ids": t["class_ids"],
+                                      "target_bbox": t["deltas"],
+                                      "target_mask": t["masks"]}, active)[0]
+
+    return _split_ms([
+        ("trunk + RPN + proposals", trunk), ("targets", targets),
+        ("ROIAlign #3 x2", align), ("heads forward + losses", heads),
+        ("heads backward", lambda loss: loss.backward()),
+        ("optimizer + constraints", lambda _: (opt.step(), apply_constraints(
+            params, frozen_predicate=_is_frozen_for_e2e)))])
+
+
+def rpn_train_run(here: str, tmp: str, smi: str) -> dict:
+    """RPN_TRAINING through the port's CLI, in this process: one epoch
+    from the tracked checkpoint (EPOCHS = FROM_EPOCH + 1). Checks finite
+    losses, det@0.5_top500 of the epoch's evaluation, the files, and that
+    latest.msgpack read back by the port reproduces the trained model's
+    RPN outputs exactly."""
+    from m3d_torch import __main__ as cli
+    from m3d_torch.checkpoints import (load_params, params_from_jax,
+                                       restore_by_name)
+    from m3d_torch.data.datasets import ToyDataset
+    from m3d_torch.models.mask_rcnn import MaskRCNN
+
+    with open(os.path.join(here, RPN_TRAIN_CONFIG)) as f:
+        from_epoch = int(json.load(f)["FROM_EPOCH"])
+    out = os.path.join(tmp, "out_rpn_train")
+    wdir = os.path.join(out, "weights")
+    path = write_config(
+        os.path.join(here, RPN_TRAIN_CONFIG),
+        os.path.join(tmp, "rpn_train.json"),
+        DATA_DIR=os.path.join(tmp, "train_data"), OUTPUT_DIR=out,
+        WEIGHT_DIR=wdir, RPN_WEIGHTS=os.path.join(here, CHECKPOINT),
+        EPOCHS=from_epoch + 1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    trainer = cli.main(["--task", "RPN_TRAINING", "--config_path", path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    timing = train_timing("rpn_train", trainer, smi)
+    (epoch,) = trainer.history
+    phase("rpn_train", f"{wall:.2f}s, {timing['steps']} steps, kernel "
+          f"launches {launch_counts()}; epoch {json.dumps(epoch)}")
+    if epoch["det@0.5_top500"] < RECALL_FLOOR:
+        raise AssertionError(f"rpn_train det@0.5_top500 "
+                             f"{epoch['det@0.5_top500']:.4f} < {RECALL_FLOOR}")
+    check_ckpt_files("rpn_train", wdir)
+    # The saved file, read back by the port, is the trained model.
+    dev = trainer.device
+    fresh = MaskRCNN.from_config(trainer.config, mode="training",
+                                 device=dev).eval()
+    stats = restore_by_name(fresh, params_from_jax(
+        load_params(os.path.join(wdir, "latest.msgpack"))[0]))
+    if stats["missing"] or stats["skipped"]:
+        raise AssertionError(f"rpn_train latest.msgpack: {stats}")
+    ds = ToyDataset()
+    ds.load_dataset(os.path.join(tmp, "train_data"), is_train=False,
+                    class_names=tuple(trainer.config.CLASS_NAMES))
+    ds.prepare()
+    image = torch.as_tensor(ds.load_image(0)[None], device=dev)
+    anchors = torch.as_tensor(trainer.anchors, device=dev)
+    a = trainer.model.forward_rpn(image, anchors)
+    b = fresh.forward_rpn(image, anchors)
+    for k in ("rpn_class_logits", "rpn_bbox", "proposals"):
+        if not torch.equal(a[k], b[k]):
+            raise AssertionError(f"rpn_train: latest.msgpack gives other "
+                                 f"{k} than the trained model")
+    phase("rpn_train", "latest.msgpack read back reproduces the trained "
+          "model's RPN logits, deltas and proposals exactly")
+    from m3d_torch.data.generators import RPNGenerator, to_device
+
+    ds = ToyDataset()
+    ds.load_dataset(os.path.join(tmp, "train_data"), is_train=True,
+                    class_names=tuple(trainer.config.CLASS_NAMES))
+    ds.prepare()
+    batch = to_device(next(iter(RPNGenerator(ds, trainer.config,
+                                             mode="training"))), dev)
+    split = rpn_step_split(trainer, batch)
+    phase("rpn_train", f"step split ms (CUDA events, mean of 3): {split}")
+    return dict(timing, wall_s=wall, epoch=epoch, split=split)
+
+
+def e2e_train_run(here: str, tmp: str, smi: str, errs: dict):
+    """e2e HEAD_TRAINING through the port's CLI, in this process: one
+    epoch from the tracked checkpoint. Every #3 launch (2 per train step,
+    2 per validation step) is held against its plain version; the trunk of
+    latest.msgpack must equal the checkpoint's, some head leaf must
+    differ. Returns (timing, best.msgpack path, #3 launches)."""
+    from m3d_torch import __main__ as cli
+    from m3d_torch.checkpoints import load_params, params_from_jax
+    from m3d_torch.ops import roialign_compact as rc
+
+    out = os.path.join(tmp, "out_e2e")
+    wdir = os.path.join(out, "weights")
+    ckpt = os.path.join(here, CHECKPOINT)
+    path = write_config(
+        os.path.join(here, E2E_CONFIG), os.path.join(tmp, "e2e.json"),
+        DATA_DIR=os.path.join(tmp, "train_data"), OUTPUT_DIR=out,
+        WEIGHT_DIR=wdir, RPN_WEIGHTS=ckpt, HEAD_WEIGHTS=ckpt, EPOCHS=1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    spy = Spy()
+    t = time.perf_counter()
+    try:
+        trainer = cli.main(["--task", "HEAD_TRAINING", "--config_path",
+                            path])
+        torch.cuda.synchronize()
+    finally:
+        spy.restore()
+    wall = time.perf_counter() - t
+    launches = rc.PADDED.launches
+    timing = train_timing("e2e_train", trainer, smi)
+    (epoch,) = trainer.history
+    phase("e2e_train", f"{wall:.2f}s, {timing['steps']} steps, kernel "
+          f"launches {launch_counts()}; epoch {json.dumps(epoch)}")
+    if not np.isfinite(epoch["val_loss"]):
+        raise AssertionError(f"e2e_train val_loss {epoch['val_loss']}")
+    val_steps = 1   # min(val_steps 2, one test batch)
+    want = 2 * timing["steps"] + 2 * val_steps
+    calls = spy.calls["roialign_padded"]
+    if launches != want or len(calls) != want:
+        raise AssertionError(f"e2e_train: {launches} roialign_padded "
+                             f"launches, {len(calls)} calls, want {want}")
+    for i, args in enumerate(calls):
+        errs["roialign_padded"].append(compare_padded(
+            args, f"e2e_train captured roialign_padded call {i} "
+                  f"(p={args[1].shape[-1]})"))
+    shapes = {}
+    for args in calls[:2]:      # the first train step: p = 7, then 14
+        levels, pos, fms, n_per = args
+        n, _, p = pos.shape
+        compact = (levels, torch.div(
+            torch.arange(n, device=pos.device, dtype=torch.int32), n_per,
+            rounding_mode="floor"), torch.tensor(n, dtype=torch.int32,
+                                                 device=pos.device), pos, fms)
+        library = grid_sample_call(compact)
+        library()
+        bound_ms, bound_by, unit = kernel_bound_ms(compact)
+        shapes[f"p{p}"] = {
+            "rows": n, "ms": cuda_ms(lambda: rc.roialign_padded(*args), 50),
+            "plain_ms": cuda_ms(lambda: rc.roialign_compact_plain(*compact),
+                                2),
+            "library_ms": cuda_ms(library, 10), "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        phase("e2e_train", f"roialign_padded at p={p}, {n} rows: "
+              f"{json.dumps(shapes[f'p{p}'])} ({unit})")
+    check_ckpt_files("e2e_train", wdir)
+    src = params_from_jax(load_params(ckpt)[0])
+    saved = params_from_jax(load_params(os.path.join(wdir,
+                                                     "latest.msgpack"))[0])
+    if src.keys() != saved.keys():
+        raise AssertionError("e2e_train: latest.msgpack leaves differ from "
+                             "the checkpoint's")
+    heads = [k for k in src if "mrcnn_" in k]
+    trunk_diff = [k for k in src if k not in heads
+                  and not torch.equal(src[k], saved[k])]
+    moved = [k for k in heads if not torch.equal(src[k], saved[k])]
+    if trunk_diff or not moved:
+        raise AssertionError(f"e2e_train: trunk leaves changed {trunk_diff}; "
+                             f"head leaves changed {len(moved)}")
+    phase("e2e_train", f"{len(src) - len(heads)} trunk leaves (params and "
+          f"batch_stats) bit-equal to the checkpoint; {len(moved)} of "
+          f"{len(heads)} head leaves changed; #3 launches {launches} = 2 x "
+          f"{timing['steps']} train + 2 x {val_steps} val steps")
+    return dict(timing, wall_s=wall, epoch=epoch, padded=shapes), \
+        os.path.join(wdir, "best.msgpack"), launches
+
+
+def e2e_fit_run(here: str, tmp: str, smi: str) -> dict:
+    """Fresh heads (JAX's initialiser distributions) on the tracked trunk
+    and RPN, FIT_STEPS e2e steps on one fixed batch: the mean of the last
+    five losses must be below the first."""
+    from m3d_torch.checkpoints import (load_params, params_from_jax,
+                                       params_to_jax, save_params)
+    from m3d_torch.config import load_config
+    from m3d_torch.data.datasets import ToyDataset
+    from m3d_torch.data.generators import RPNGenerator, to_device
+    from m3d_torch.train.head import HeadTrainer
+
+    trunk = {k: v for k, v in params_from_jax(
+        load_params(os.path.join(here, CHECKPOINT))[0]).items()
+        if "mrcnn_" not in k}
+    rpn_only = save_params(os.path.join(tmp, "rpn_only.msgpack"),
+                           params_to_jax(trunk))
+    out = os.path.join(tmp, "out_fit")
+    config = load_config(write_config(
+        os.path.join(here, E2E_CONFIG), os.path.join(tmp, "fit.json"),
+        DATA_DIR=os.path.join(tmp, "train_data"), OUTPUT_DIR=out,
+        WEIGHT_DIR=os.path.join(out, "weights"), RPN_WEIGHTS=rpn_only,
+        HEAD_WEIGHTS=None))
+    torch.cuda.reset_peak_memory_stats()
+    trainer = HeadTrainer(config)
+    opt = trainer.prepare_e2e()
+    ds = ToyDataset()
+    ds.load_dataset(config.DATA_DIR, is_train=True,
+                    class_names=tuple(config.CLASS_NAMES))
+    ds.prepare()
+    batch = to_device(next(iter(RPNGenerator(ds, config, mode="e2e"))),
+                      trainer.device)
+    step = trainer.make_e2e_step(opt, torch.Generator(
+        trainer.device).manual_seed(1))
+    for _ in range(FIT_STEPS):
+        trainer.clock.run(step, batch)
+    timing = train_timing("e2e_fit", trainer, smi)
+    losses = timing["losses"]
+    last = float(np.mean(losses[-5:]))
+    phase("e2e_fit", f"{FIT_STEPS} steps on one batch, loss "
+          f"{[round(v, 4) for v in losses]}; first {losses[0]:.4f}, mean "
+          f"of the last five {last:.4f}")
+    if not last < losses[0]:
+        raise AssertionError(f"e2e_fit: the loss did not fall "
+                             f"({losses[0]:.4f} -> {last:.4f})")
+    split = e2e_step_split(trainer, opt, batch)
+    phase("e2e_fit", f"e2e step split ms (CUDA events, mean of 3): {split}")
+    return dict(timing, split=split)
 
 
 def matched_detections(det_ref, valid_ref, det, valid) -> int:
@@ -1193,6 +1565,31 @@ def main() -> int:
         mono_launch, mono_sum = eval_run(here, tmp, "monolithic", smi, errs,
                                          CLASSIFIER_CHUNK=0, MASK_CHUNK=0)
         rpn_launch = rpn_eval_run(here, tmp, smi)
+
+        # rpn_train / e2e_train / train_eval / e2e_fit: the training tasks
+        t = time.perf_counter()
+        generate_experiment(TRAIN_IMAGES, SIZE,
+                            os.path.join(tmp, "train_data"), seed=TRAIN_SEED)
+        split_dataset(os.path.join(tmp, "train_data"),
+                      test_ratio=TRAIN_TEST_RATIO)
+        phase("rpn_train", f"dataset of {TRAIN_IMAGES} volumes {SIZE}^3 "
+              f"written in {time.perf_counter() - t:.2f}s")
+        rpn_train = rpn_train_run(here, tmp, smi)
+        e2e_train, best, e2e_launch = e2e_train_run(here, tmp, smi, errs)
+        train_eval_launch, _ = eval_run(
+            here, tmp, "train_eval", smi, errs, HEAD_WEIGHTS=best)
+        e2e_fit = e2e_fit_run(here, tmp, smi)
+        print(f"[{smi}] training steps: " + json.dumps({
+            "rpn_train": {k: rpn_train[k] for k in (
+                "step_ms_median_after_first", "host_ms_median_after_first",
+                "peak_gib", "wall_s")},
+            "e2e_train": {k: e2e_train[k] for k in (
+                "step_ms_median_after_first", "host_ms_median_after_first",
+                "peak_gib", "wall_s")},
+            "e2e_fit": {k: e2e_fit[k] for k in (
+                "step_ms_median_after_first", "peak_gib")},
+            "rpn_split_ms": rpn_train["split"],
+            "e2e_split_ms": e2e_fit["split"]}), flush=True)
     # The two graphs compute the same function: equal detection counts,
     # pixel metrics and dice within EVAL_METRIC_TOL (bf16 order only).
     for key in ("det_tp", "det_fp", "det_fn"):
@@ -1218,7 +1615,11 @@ def main() -> int:
             "eval": eval_launch.get(name, 0),
             "eval (CLASSIFIER_CHUNK 0, MASK_CHUNK 0)": mono_launch.get(
                 name, 0),
-            "rpn_eval": rpn_launch.get(name, 0)}
+            "rpn_eval": rpn_launch.get(name, 0),
+            "e2e_train": e2e_launch if name == "roialign_padded" else 0,
+            "train_eval": train_eval_launch.get(name, 0)}
+        if name == "roialign_padded":   # its calls in the e2e train step
+            k["e2e_train_shapes"] = e2e_train["padded"]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()

@@ -6,13 +6,20 @@
                         --config_path configs/....json [--summary]
                         [--device {cuda,cpu}]
 
-The same JSON configs, on-disk datasets and artifacts as main.py. The two
-evaluation tasks are ported; the four training tasks exit non-zero. The
+The same JSON configs, on-disk datasets and artifacts as main.py. Ported:
+the two evaluation tasks, RPN_TRAINING, and HEAD_TRAINING with MODE
+"training_head_e2e". TARGET_GENERATION, MRCNN_TRAINING, head-only
+HEAD_TRAINING and the training options not ported yet (TRAIN_BN,
+AUTO_TUNE_RPN, GPU_COUNT > 1, .h5 weights) exit non-zero naming the
+ROADMAP.md item that brings them, having read nothing but the config. The
 model runs on the card unless ``--device cpu`` is given; with no card and no
 ``--device cpu`` the command exits non-zero before it reads or writes
 anything. ``main(argv)`` returns the task's result (MRCNN_EVALUATION:
-{"summary", "per_image", "times"}; RPN_EVALUATION: the metrics dict), so a
-caller in the same process can read the kernels' launch counters after it.
+{"summary", "per_image", "times"}; RPN_EVALUATION: the metrics dict;
+the training tasks: the trainer, whose ``model`` is trained and whose
+``history`` and ``clock.records`` hold each epoch's metrics and each
+step's times), so a caller in the same process can read the kernels'
+launch counters after it.
 """
 
 from __future__ import annotations
@@ -30,7 +37,8 @@ TASKS = (
     "MRCNN_TRAINING",
     "MRCNN_EVALUATION",
 )
-PORTED = ("RPN_EVALUATION", "MRCNN_EVALUATION")
+PORTED = ("RPN_EVALUATION", "MRCNN_EVALUATION", "RPN_TRAINING",
+          "HEAD_TRAINING")
 
 
 def main(argv=None):
@@ -53,11 +61,31 @@ def main(argv=None):
                          "(no usable NVIDIA card); pass --device cpu to run "
                          "on the CPU")
 
-    from m3d_torch.config import load_config
+    from m3d_torch.config import load_config, unported_training
 
     config = load_config(args.config_path)
+    if args.task in ("RPN_TRAINING", "HEAD_TRAINING"):
+        why = unported_training(args.task, config)
+        if why:
+            raise SystemExit(f"{args.task}: {why}; run it with main.py")
     if args.summary:
         config.display()
+
+    if args.task == "RPN_TRAINING":
+        from m3d_torch.train.rpn import RPNTrainer
+
+        trainer = RPNTrainer(config, device=args.device)
+        if not args.summary:
+            trainer.history = trainer.train()[1]
+        return trainer
+
+    if args.task == "HEAD_TRAINING":
+        from m3d_torch.train.head import HeadTrainer
+
+        trainer = HeadTrainer(config, device=args.device)
+        if not args.summary:
+            trainer.history = trainer.train_e2e()[1]
+        return trainer
 
     if args.task == "RPN_EVALUATION":
         from m3d_torch.train.rpn import RPNTrainer

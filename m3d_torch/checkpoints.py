@@ -1,11 +1,13 @@
-"""Flax msgpack checkpoints -> torch state dicts (port of the loading half of
-m3d/train/checkpoints.py: ``load_params``, ``restore_by_name`` with its
-class-dim slicing, ``infer_head_params`` and ``autoconfigure_heads``).
+"""Flax msgpack checkpoints both ways (port of m3d/train/checkpoints.py:
+``load_params``, ``save_params``, ``extract_subtree``, ``BestAndLatest``,
+``restore_by_name`` with its class-dim slicing, ``infer_head_params`` and
+``autoconfigure_heads``).
 
 The JAX package saves its parameter trees with
 ``flax.serialization.msgpack_serialize``. This module reads those files with
-its own small msgpack decoder, so the port needs neither ``msgpack`` nor
-``flax``. Only the subset flax writes is decoded: maps, arrays, str, bin,
+its own small msgpack decoder, and writes them with its own encoder
+(``msgpack_serialize``: the bytes flax writes for a tree of dicts and
+arrays), so the port needs neither ``msgpack`` nor ``flax``. Only the subset flax writes is decoded: maps, arrays, str, bin,
 nil/bool, ints, floats, and the ext types flax registers (1 = ndarray as
 ``(shape, dtype name, raw bytes)``, 2 = complex, 3 = numpy scalar), plus
 flax's chunked-array dicts for leaves over 1 GiB.
@@ -13,8 +15,9 @@ flax's chunked-array dicts for leaves over 1 GiB.
 ``params_from_jax`` turns the nested flax tree into the port's state dict:
 the module path keeps flax's names (``resnet/Bottleneck_0/res2a_branch2a``
 becomes ``resnet.Bottleneck_0.res2a_branch2a``), kernels change layout, and
-f16 storage is cast back to float32. The conversion happens in memory at load
-time; nothing converted is written to disk.
+f16 storage is cast back to float32. ``params_to_jax`` is its exact
+inverse, so the port's checkpoints are flax trees that JAX's ``load_params``
+and ``restore_by_name`` read.
 """
 
 from __future__ import annotations
@@ -34,6 +37,8 @@ TRANSPOSED_CONVS = ("mrcnn_mask_deconv",)
 
 _LEAF_NAMES = {"kernel": "weight", "scale": "weight", "bias": "bias",
                "mean": "running_mean", "var": "running_var"}
+# flax writes leaves over this many bytes in chunks; no model leaf is close.
+MAX_CHUNK_SIZE = 2 ** 30
 
 
 class _Reader:
@@ -140,6 +145,92 @@ def msgpack_restore(data: bytes):
     return _unchunk(tree)
 
 
+def _pack_int(n: int) -> bytes:
+    """A non-negative int (array shapes are the only ints flax trees hold)."""
+    if 0 <= n < 0x80:
+        return bytes([n])
+    for code, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")):
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"integer out of range: {n}")
+
+
+def _pack_len(n: int, fix: int, fix_max: int, codes) -> bytes:
+    """Header of a str / bin / array / map of n items (msgpack-python's
+    choice of the smallest form)."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt in codes:
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack length too large: {n}")
+
+
+def _pack(x, out: list) -> None:
+    if isinstance(x, dict):
+        # flax's jax.tree_util copy of the tree sorts every dict's keys.
+        out.append(_pack_len(len(x), 0x80, 15, ((0xDE, ">H"), (0xDF, ">I"))))
+        for k in sorted(x):
+            _pack(k, out)
+            _pack(x[k], out)
+    elif isinstance(x, (list, tuple)):
+        out.append(_pack_len(len(x), 0x90, 15, ((0xDC, ">H"), (0xDD, ">I"))))
+        for v in x:
+            _pack(v, out)
+    elif isinstance(x, str):
+        raw = x.encode("utf-8")
+        out.append(_pack_len(len(raw), 0xA0, 31,
+                             ((0xD9, ">B"), (0xDA, ">H"), (0xDB, ">I"))))
+        out.append(raw)
+    elif isinstance(x, bytes):
+        out.append(_pack_len(len(x), None, 0,
+                             ((0xC4, ">B"), (0xC5, ">H"), (0xC6, ">I"))))
+        out.append(x)
+    elif isinstance(x, int):
+        out.append(_pack_int(x))
+    elif isinstance(x, np.ndarray):
+        if x.nbytes > MAX_CHUNK_SIZE:
+            raise ValueError(f"array of {x.nbytes} bytes: flax would chunk "
+                             f"it, which this writer does not do")
+        payload = []
+        _pack([list(x.shape), x.dtype.name, x.tobytes("C")], payload)
+        payload = b"".join(payload)
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out.append(bytes([fixext[n]]))
+        else:
+            out.append(_pack_len(n, None, 0, ((0xC7, ">B"), (0xC8, ">H"),
+                                              (0xC9, ">I"))))
+        out.append(struct.pack(">b", 1))   # flax's ext type for ndarray
+        out.append(payload)
+    else:
+        raise TypeError(f"cannot msgpack-encode {type(x).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode a tree of dicts with str keys and numpy array leaves as
+    ``flax.serialization.msgpack_serialize`` does, byte for byte."""
+    out: list = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
+def save_params(path: str, tree, metadata: dict | None = None) -> str:
+    """Atomic write of a flax variables tree ({"params": ...,
+    "batch_stats": ...} of numpy arrays, as ``params_to_jax`` gives) plus
+    an optional JSON sidecar ``path + ".json"``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(msgpack_serialize(tree))
+    os.replace(tmp, path)
+    if metadata is not None:
+        with open(path + ".json", "w") as f:
+            json.dump(metadata, f)
+    return path
+
+
 def load_params(path: str):
     """Read a flax msgpack checkpoint. Returns (tree, sidecar metadata)."""
     with open(path, "rb") as f:
@@ -184,6 +275,78 @@ def params_from_jax(tree) -> dict[str, torch.Tensor]:
         key = ".".join(mod + [_LEAF_NAMES[name]])
         out[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return out
+
+
+def params_to_jax(state: dict) -> dict:
+    """State dict -> flax variables {"params": ..., "batch_stats": ...} of
+    float32 numpy arrays: the exact inverse of ``params_from_jax``. A 1-D
+    ``weight`` is a BatchNorm scale; 5-D weights are conv kernels (the
+    transposed convs of TRANSPOSED_CONVS flipped back), 2-D dense."""
+    tree: dict = {}
+    names = {v: k for k, v in _LEAF_NAMES.items() if k != "scale"}
+    for key, val in state.items():
+        *mod, leaf = key.split(".")
+        arr = val.detach().to("cpu", torch.float32).numpy()
+        if leaf == "weight" and arr.ndim == 1:
+            name = "scale"
+        else:
+            name = names[leaf]
+        if name == "kernel" and arr.ndim == 5:
+            if mod and mod[-1] in TRANSPOSED_CONVS:
+                arr = np.flip(arr, axis=(2, 3, 4)).transpose(2, 3, 4, 0, 1)
+            else:
+                arr = arr.transpose(2, 3, 4, 1, 0)
+        elif name == "kernel" and arr.ndim == 2:
+            arr = arr.T
+        root = "batch_stats" if name in ("mean", "var") else "params"
+        node = tree.setdefault(root, {})
+        for m in mod:
+            node = node.setdefault(m, {})
+        node[name] = np.ascontiguousarray(arr)
+    return tree
+
+
+def extract_subtree(tree, prefixes=("mrcnn_",)):
+    """Keep the leaves whose path has a component starting with one of
+    ``prefixes`` (the head-only export)."""
+    out: dict = {}
+    for path, leaf in _flatten(tree):
+        if any(part.startswith(p) for part in path for p in prefixes):
+            node = out
+            for part in path[:-1]:
+                node = node.setdefault(part, {})
+            node[path[-1]] = leaf
+    return out
+
+
+class BestAndLatest:
+    """Per-epoch ``latest.msgpack`` and metric-gated ``best.msgpack``, each
+    with a head-only ``_head`` export and JSON sidecars (RPN maximises its
+    detection score, the heads minimise the validation loss)."""
+
+    def __init__(self, save_dir: str, mode: str = "min"):
+        self.save_dir = save_dir
+        self.mode = mode
+        self.best_metric = np.inf if mode == "min" else -np.inf
+        os.makedirs(save_dir, exist_ok=True)
+
+    def update(self, epoch: int, tree, metric: float,
+               metadata: dict | None = None) -> bool:
+        md = dict(metadata or {})
+        md.update({"epoch": int(epoch), "metric": float(metric)})
+        head = extract_subtree(tree)
+        names = ["latest"]
+        improved = (metric < self.best_metric if self.mode == "min"
+                    else metric > self.best_metric)
+        if improved:
+            self.best_metric = metric
+            names.append("best")
+        for name in names:
+            save_params(os.path.join(self.save_dir, f"{name}.msgpack"), tree,
+                        md)
+            save_params(os.path.join(self.save_dir, f"{name}_head.msgpack"),
+                        head, md)
+        return improved
 
 
 def _try_class_slice(src: torch.Tensor, dst: torch.Tensor):

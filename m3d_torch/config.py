@@ -292,3 +292,28 @@ def load_config(config_path: str) -> Config:
     with open(config_path) as config_file:
         config_dict = json.load(config_file)
     return Config(**config_dict)
+
+
+def unported_training(task: str, config) -> str | None:
+    """Why ``task`` with this config cannot run on the port yet (the
+    ROADMAP.md item that brings it), or None. Read from the config alone,
+    before any other file is touched."""
+    if task == "HEAD_TRAINING" and config.MODE != "training_head_e2e":
+        return (f"HEAD_TRAINING with MODE {config.MODE!r} (head-only, from "
+                f"TARGET_GENERATION's artifacts): not ported yet "
+                f"(ROADMAP.md §1 item 5); only MODE 'training_head_e2e' is")
+    if bool(getattr(config, "TRAIN_BN", False)):
+        return "TRAIN_BN true: not ported yet (ROADMAP.md §1 item 5)"
+    if task == "RPN_TRAINING" and bool(getattr(config, "AUTO_TUNE_RPN",
+                                               False)):
+        return ("AUTO_TUNE_RPN true: autotune.py is not ported yet "
+                "(ROADMAP.md §1 item 4)")
+    if int(getattr(config, "GPU_COUNT", 1)) > 1:
+        return ("GPU_COUNT > 1: multi-GPU training is not ported yet "
+                "(ROADMAP.md §1 item 6)")
+    for key in ("RPN_WEIGHTS", "HEAD_WEIGHTS", "MASK_WEIGHTS"):
+        path = str(getattr(config, key, None) or "")
+        if path.endswith((".h5", ".hdf5")):
+            return (f"{key} {path}: .h5 weights are not ported yet "
+                    f"(ROADMAP.md §1 item 5, h5_import)")
+    return None

@@ -1,16 +1,29 @@
-"""Inference inputs (port of ``pad_to`` and the inference mode of
-``MrcnnGenerator`` in m3d/data/generators.py).
+"""Batch generators (port of m3d/data/generators.py): host numpy pipelines
+feeding the device.
 
-A volume is zero-padded up to its compile bucket (XY a multiple of 64, z a
-multiple of 8) and its anchors come from a per-bucket cache; the true extent
-rides in the meta window so evaluation can crop back.
+- ``RPNGenerator``: RPN training batches (image, rpn_match, rpn_bbox) with
+  the augmentations, GT jitter and ATSS targets; e2e batches with GT padded
+  to MAX_GT_INSTANCES (``pad_to``). Same RandomState calls in the same
+  order as JAX's, so a seed gives the same batches.
+- ``MrcnnGenerator``: single-image inference inputs. A volume is
+  zero-padded up to its bucket (XY a multiple of 64, z a multiple of 8) and
+  its anchors come from a per-bucket cache; the true extent rides in the
+  meta window so evaluation can crop back.
+- ``prefetch_to_device``: a queue of batches already on the device,
+  copied from pinned host memory without blocking (``to_device``).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import collections
 
-from m3d_torch.anchors import AnchorCache, bucket_image_shape
+import numpy as np
+import torch
+
+from m3d_torch.anchors import (AnchorCache, bucket_image_shape,
+                               normalized_pyramid_anchors)
+from m3d_torch.data.augment import apply_minimal_augs_3d, jitter_boxes_3d
+from m3d_torch.data.rpn_targets import build_rpn_targets
 from m3d_torch.image_meta import compose_image_meta
 
 
@@ -27,6 +40,159 @@ def pad_to(arr, n, axis=0):
     pad = [(0, 0)] * arr.ndim
     pad[axis] = (0, n - cur)
     return np.pad(arr, pad)
+
+
+class RPNGenerator:
+    """Endless iterator over batches: mode "training" gives {image,
+    rpn_match, rpn_bbox}; mode "e2e" gives {image, image_meta, gt_class_ids,
+    gt_boxes, gt_masks} with GT padded to MAX_GT_INSTANCES and boxes
+    normalized. ``augment`` None follows AUGMENT (training mode only, as in
+    JAX); True/False override it."""
+
+    MODES = ("training", "e2e")
+
+    def __init__(self, dataset, config, mode: str, shuffle=True,
+                 seed: int = 0, telemetry=None, augment=None):
+        self.mode = mode
+        if self.mode not in self.MODES:
+            raise ValueError(f"RPNGenerator mode {self.mode!r}: only "
+                             f"{self.MODES} are ported (ROADMAP.md §1)")
+        self.dataset = dataset
+        self.config = config
+        self.shuffle = shuffle
+        self.telemetry = telemetry
+        self.augment = augment
+        self.seed = seed
+        self.rng = np.random.RandomState(seed)
+        self.batch_size = int(config.BATCH_SIZE)
+        self.anchors = normalized_pyramid_anchors(
+            config, voxel_z_over_y=float(getattr(config, "VOXEL_Z_OVER_Y",
+                                                 1.0)))
+        self._order = np.arange(len(dataset.image_info))
+
+    def reset(self):
+        """Restore the rng and order, so a validation pass draws the same
+        batches every epoch."""
+        self.rng = np.random.RandomState(self.seed)
+        self._order = np.arange(len(self.dataset.image_info))
+        return self
+
+    def __len__(self):
+        return max(1, len(self.dataset.image_info) // self.batch_size)
+
+    def load_image_gt(self, image_id, augment=None):
+        """(image [H, W, D, 1], boxes [N, 6] float32 px, class_ids, masks)."""
+        cfg = self.config
+        image = self.dataset.load_image(image_id)
+        boxes, class_ids, masks = self.dataset.load_data(image_id)
+        boxes = boxes.astype(np.float32)
+        if self.augment is not None:
+            do_aug = self.augment
+        else:
+            do_aug = cfg.AUGMENT if augment is None else augment
+        if do_aug and self.mode == "training":
+            image, boxes, masks = apply_minimal_augs_3d(image, boxes, masks,
+                                                        cfg, rng=self.rng)
+        return image, boxes, class_ids, masks
+
+    def _sample_training(self, image_id):
+        cfg = self.config
+        image, boxes, class_ids, _ = self.load_image_gt(image_id)
+        target_boxes = boxes
+        if getattr(cfg, "RPN_AUGMENT_GT", False) and boxes.size:
+            target_boxes = jitter_boxes_3d(
+                boxes, count=int(cfg.RPN_GT_JITTER_PER_BOX),
+                scale_sigma=float(cfg.RPN_GT_JITTER_SCALE_SIGMA),
+                trans=tuple(cfg.RPN_GT_JITTER_TRANS),
+                img_shape=image.shape[:3],
+                iou_thr=float(cfg.RPN_GT_JITTER_IOU_THR), rng=self.rng)
+        rpn_match, rpn_bbox = build_rpn_targets(
+            self.anchors, class_ids, target_boxes, cfg, rng=self.rng,
+            telemetry=self.telemetry)
+        return image, rpn_match, rpn_bbox
+
+    def _sample_gt(self, image_id, augment=False):
+        """GT sample with normalized boxes, padded to MAX_GT_INSTANCES."""
+        cfg = self.config
+        image, boxes, class_ids, masks = self.load_image_gt(image_id,
+                                                            augment=augment)
+        H, W, D = image.shape[:3]
+        scale = np.array([H, W, D, H, W, D], np.float32)
+        boxes_norm = (np.clip(boxes / scale, 0.0, 1.0) if boxes.size
+                      else boxes.reshape(0, 6))
+        G = int(cfg.MAX_GT_INSTANCES)
+        meta = compose_image_meta(image_id, (H, W, D, 1), (H, W, D, 1),
+                                  (0, 0, 0, H, W, D), 1.0,
+                                  [1] * int(cfg.NUM_CLASSES))
+        if masks is None:
+            masks = np.zeros((H, W, D, 0), np.float32)
+        if getattr(cfg, "USE_MINI_MASK", False):
+            from m3d_torch.utils.minimask import minimize_mask
+
+            masks = minimize_mask(boxes.astype(np.int32), masks,
+                                  tuple(int(v) for v in cfg.MINI_MASK_SHAPE))
+        return {
+            "image": image.astype(np.float32),
+            "image_meta": meta,
+            "gt_class_ids": pad_to(class_ids.astype(np.int32), G),
+            "gt_boxes": pad_to(boxes_norm.astype(np.float32), G),
+            "gt_masks": pad_to(masks.astype(np.float32), G, axis=3),
+        }
+
+    def __iter__(self):
+        if len(self._order) < self.batch_size:
+            raise ValueError(
+                f"dataset has {len(self._order)} images < batch_size "
+                f"{self.batch_size}: no batch can ever be formed")
+        while True:
+            if self.shuffle:
+                self.rng.shuffle(self._order)
+            for start in range(0, len(self._order) - self.batch_size + 1,
+                               self.batch_size):
+                yield self.get_batch(self._order[start:start
+                                                 + self.batch_size])
+
+    def get_batch(self, ids):
+        if self.mode == "training":
+            samples = [self._sample_training(i) for i in ids]
+            return {"image": np.stack([s[0] for s in samples]),
+                    "rpn_match": np.stack([s[1] for s in samples]),
+                    "rpn_bbox": np.stack([s[2] for s in samples])}
+        samples = [self._sample_gt(i, augment=True) for i in ids]
+        return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+def to_device(batch: dict, device) -> dict:
+    """numpy batch -> tensors on ``device``; on a card from pinned memory,
+    copied with ``non_blocking``."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.ascontiguousarray(v))
+        if torch.device(device).type == "cuda":
+            t = t.pin_memory().to(device, non_blocking=True)
+        out[k] = t
+    return out
+
+
+def prefetch_to_device(iterator, device, size: int = 2):
+    """Yield the iterator's numpy batches as dicts of tensors on
+    ``device``, ``size`` batches ahead (PREFETCH_BUFFERS). On a card each
+    array is pinned and copied with ``non_blocking``, so the copy overlaps
+    the device's work on the batch before it. Assembly runs on the
+    caller's thread, when a batch is taken."""
+    queue = collections.deque()
+
+    def enqueue():
+        try:
+            queue.append(to_device(next(iterator), device))
+        except StopIteration:
+            pass
+
+    for _ in range(size):
+        enqueue()
+    while queue:
+        yield queue.popleft()
+        enqueue()
 
 
 class MrcnnGenerator:

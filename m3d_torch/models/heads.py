@@ -1,8 +1,8 @@
 """FPN classifier and mask heads (port of m3d/models/heads.py).
 
 ClassifierHead: pool^3 "FC" conv -> 1^3 conv (both + frozen BN + relu) ->
-class logits Dense with the +-10 logit clip -> softmax; bbox Dense
-``num_classes * 6``. The pool^3 VALID conv over a pool^3 input is one matrix
+class logits Dense with the +-10 logit clip (straight-through: the gradient
+passes as identity) -> softmax; bbox Dense ``num_classes * 6``. The pool^3 VALID conv over a pool^3 input is one matrix
 product (m3d.ops.conv3d.conv3d_fc), computed here as one too.
 
 MaskHead: 4x 3^3 convs with a dilated-residual block (conv3b, dilation 2,
@@ -76,7 +76,11 @@ class ClassifierHead(nn.Module):
         x = x.reshape(b * t, 1, 1, 1, -1)
         x = F.relu(self.mrcnn_class_bn2(self.mrcnn_class_conv2(x)))
         shared = x.reshape(b, t, self.fc_layers_size)
-        logits = self.mrcnn_class_logits(shared).clamp(-10.0, 10.0)
+        logits = self.mrcnn_class_logits(shared)
+        # The +-10 clip is straight-through, as in JAX: a hard clamp has no
+        # gradient outside the band, and one large early step that pushes
+        # both logits past it would stop the classifier for good.
+        logits = logits + (logits.clamp(-10.0, 10.0) - logits).detach()
         probs = torch.softmax(logits, dim=-1)
         bbox = self.mrcnn_bbox_fc(shared).reshape(b, t, self.num_classes, 6)
         return logits, probs, bbox

@@ -8,15 +8,21 @@ composable stages m3d_torch/models/inference.py chains: ``extract_features``,
 and ``apply_mask_head``; and the monolithic graph's stages,
 ``classify_rois`` (fused ROIAlign + FC kernel) and ``mask_rois`` (padded
 ROIAlign kernel), which ``forward`` (JAX's ``__call__``) chains over every
-padded slot. ``forward_rpn`` stops after the proposals (RPN evaluation).
-``init_params`` seeds the weights no checkpoint covers.
+padded slot. ``forward_rpn`` stops after the proposals (RPN evaluation and the e2e
+head step's frozen trunk); ``forward_rpn_train`` is the RPN training forward
+(with gradients, no proposals) and ``forward_heads`` the heads on
+pre-aligned features. ``init_params`` seeds the weights no checkpoint
+covers, with JAX's distributions.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
+from m3d_torch.checkpoints import TRANSPOSED_CONVS
 from m3d_torch.models.backbone import ResNet3D
 from m3d_torch.models.detection import refine_detections_batch
 from m3d_torch.models.fpn import FPN3D
@@ -207,6 +213,22 @@ class MaskRCNN(nn.Module):
             "feature_maps": feats,
         }
 
+    def forward_rpn_train(self, image):
+        """RPN training forward (JAX ``forward_rpn_train``): trunk and RPN
+        head with gradients, no proposals. Returns the RPN outputs."""
+        feats = self.extract_features(image.float())
+        logits, probs, deltas = self.rpn_forward(list(feats))
+        return {"rpn_class_logits": logits, "rpn_probs": probs,
+                "rpn_bbox": deltas}
+
+    def forward_heads(self, rois_aligned, mask_aligned):
+        """Classifier and mask heads on pre-aligned [B, T, p, p, p, C] and
+        [B, T, m, m, m, C] features (JAX ``forward_heads``). BatchNorm runs
+        on its running statistics (TRAIN_BN false)."""
+        logits, probs, bbox = self.classifier(rois_aligned)
+        return {"mrcnn_class_logits": logits, "mrcnn_probs": probs,
+                "mrcnn_bbox": bbox, "mrcnn_masks": self.mask_head(mask_aligned)}
+
     @torch.no_grad()
     def forward(self, image, image_meta, anchors):
         """Monolithic inference (JAX ``MaskRCNN.__call__``): every padded
@@ -241,17 +263,51 @@ class MaskRCNN(nn.Module):
         }
 
 
+# Initialisers that differ from flax's default lecun_normal (JAX:
+# m3d/models/heads.py:36-47, 87-88, 106; m3d/models/rpn_head.py:45).
+NORMAL_STD = {"classifier.mrcnn_class_logits.weight": 0.01,
+              "classifier.mrcnn_bbox_fc.weight": 0.001,
+              "rpn.rpn_bbox_pred.weight": 0.001}
+FG_PRIOR = 0.15
+# Standard deviation of the standard normal truncated to [-2, 2]; flax's
+# truncated_normal variance scaling divides by it.
+TRUNC_STD = 0.87962566103423978
+
+
+def class_bias(num_classes: int) -> torch.Tensor:
+    """The class-logit bias JAX starts from: log-odds of a 0.15 foreground
+    prior, background first."""
+    fg = math.log(FG_PRIOR / (1 - FG_PRIOR))
+    bias = torch.full((num_classes,), fg, dtype=torch.float32)
+    bias[0] = -math.log((1 - FG_PRIOR) / FG_PRIOR)
+    return bias
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, seed: int) -> nn.Module:
-    """Seeded initialisation of every weight of two or more axes:
-    normal with standard deviation 1 / sqrt(fan in), drawn on the CPU from
-    ``torch.Generator().manual_seed(seed)`` in ``named_parameters`` order,
-    so a seed gives the same weights on every device. Biases, BatchNorm
-    scales and statistics keep their constructor values (0, 1, 0, 1).
-    Checkpoints restored afterwards overwrite what they cover."""
+    """Seeded initialisation with JAX's distributions (m3d/models/
+    mask_rcnn.py ``init_params``): every kernel lecun_normal (truncated to
+    two standard deviations, standard deviation 1 / sqrt(fan in), fan in
+    counted in flax's layout), except the three of ``NORMAL_STD``, which
+    are plain normals; biases 0 except the class logits' (``class_bias``);
+    BatchNorm scales and statistics keep their constructor values. Values
+    are drawn on the CPU from ``torch.Generator().manual_seed(seed)`` in
+    ``named_parameters`` order, so a seed gives the same weights on every
+    device. Checkpoints restored afterwards overwrite what they cover."""
     gen = torch.Generator().manual_seed(int(seed))
-    for _, p in model.named_parameters():
-        if p.ndim >= 2:
-            fan_in = p[0].numel()
-            p.copy_(torch.randn(p.shape, generator=gen) / fan_in ** 0.5)
+    for name, p in model.named_parameters():
+        if name.endswith("mrcnn_class_logits.bias"):
+            p.copy_(class_bias(p.shape[0]))
+        if p.ndim < 2:
+            continue
+        if name in NORMAL_STD:
+            p.copy_(torch.randn(p.shape, generator=gen) * NORMAL_STD[name])
+            continue
+        # torch layouts: conv [Cout, Cin, k...], dense [out, in],
+        # transposed conv [Cin, Cout, k...]; flax's fan in is k^3 * Cin.
+        fan_out_axis = 1 if name.rsplit(".", 2)[-2] in TRANSPOSED_CONVS else 0
+        fan_in = p.numel() // p.shape[fan_out_axis]
+        w = torch.empty(p.shape)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        p.copy_(w * (fan_in ** -0.5 / TRUNC_STD))
     return model

@@ -1,5 +1,5 @@
-"""Pyramid 3D ROIAlign (port of m3d/ops/roialign3d.py): flat, compact and
-padded gather entries, the kernel entries of the monolithic graph
+"""Pyramid 3D ROIAlign (port of m3d/ops/roialign3d.py): ``crop_and_resize_3d``
+(the mask-target crop), flat, compact and padded gather entries, the kernel entries of the monolithic graph
 (``pyramid_roi_align_pallas``, ``pyramid_roi_align_auto``) and the fused
 ROIAlign + classifier FC (``pyramid_roi_align_fc``, ``_flat``).
 
@@ -36,6 +36,48 @@ def axis_positions(lo, hi, size, crop: int):
         return lo[:, None] * span[:, None] + (
             (hi - lo)[:, None] * span[:, None]) * frac[None, :]
     return (0.5 * (lo + hi) * span)[:, None]
+
+
+def crop_and_resize_3d(features, boxes, box_indices, crop_size,
+                       method: str = "trilinear"):
+    """Crop N boxes from a batch of volumes and resize each to
+    ``crop_size`` (port of m3d.ops.roialign3d.crop_and_resize_3d; plain
+    PyTorch, as JAX computes it outside any Pallas kernel).
+
+    features: [B, H, W, D, C]; boxes: [N, 6] normalized (no gradient);
+    box_indices: [N] batch index per box; method "trilinear" or "nearest".
+    Returns [N, py, px, pz, C] in the features' dtype (float32 math).
+    """
+    b, h, w, d, c = features.shape
+    py, px, pz = (int(v) for v in crop_size)
+    boxes = boxes.detach().float()
+    dev = features.device
+    n = boxes.shape[0]
+    sizes = [torch.full((n,), float(v), device=dev) for v in (h, w, d)]
+    pos = tuple(axis_positions(boxes[:, a], boxes[:, a + 3], sizes[a], q)
+                for a, q in enumerate((py, px, pz)))
+    flat = features.reshape(b * h * w * d, c)
+    base = box_indices.long() * (h * w * d)
+    if method == "trilinear":
+        strides = tuple(torch.full((n,), v, dtype=torch.long, device=dev)
+                        for v in (w * d, d, 1))
+        out = trilinear_gather(flat, base, sizes, strides, pos)
+    elif method == "nearest":
+        idx, inb = [], []
+        for q, size in zip(pos, (h, w, d)):
+            inb.append((q >= 0.0) & (q <= size - 1.0))
+            idx.append(torch.round(q).clamp(0, size - 1).long())
+        iy, ix, iz = idx
+        flat_idx = (base[:, None, None, None] + iy[:, :, None, None] * (w * d)
+                    + ix[:, None, :, None] * d + iz[:, None, None, :])
+        out = flat.index_select(0, flat_idx.reshape(-1)).reshape(
+            n, py, px, pz, c).float()
+        m = inb[0][:, :, None, None] & inb[1][:, None, :, None] \
+            & inb[2][:, None, None, :]
+        out = torch.where(m[..., None], out, out.new_zeros(()))
+    else:
+        raise ValueError(f"unknown method {method!r}")
+    return out.to(features.dtype)
 
 
 def compute_roi_levels(boxes, image_shape, num_levels: int = 4):

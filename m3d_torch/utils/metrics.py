@@ -152,12 +152,15 @@ def compute_detection_score(proposals, gt_boxes, threshold):
     return recall * 100.0
 
 
-def rpn_evaluation(predict_fn, dataset, config, max_images=None):
+def rpn_evaluation(predict_fn, dataset, config, max_images=None,
+                   telemetry=None):
     """Proposal quality over a dataset (core/utils.py:1251-1415).
 
     predict_fn(image [1,H,W,D,1]) -> (proposals [P,6] normalized, valid [P]).
     Returns a metrics dict: detection@IoU over the top-K grid, mean coordinate
     error, and the summed detection score used for best-checkpoint gating.
+    ``telemetry`` (m3d_torch.train.telemetry.Telemetry) is fed each image's
+    proposal and GT geometry in pixels.
     """
     iou_grid = list(getattr(config, "EVAL_MATCH_IOU_GRID", [0.3, 0.4, 0.5]))
     topk_grid = list(getattr(config, "EVAL_TOPK_GRID", [500, 1000, 2000]))
@@ -190,6 +193,9 @@ def rpn_evaluation(predict_fn, dataset, config, max_images=None):
         proposals, valid = predict_fn(image)
         proposals = np.asarray(proposals)[np.asarray(valid)]
         props_px = proposals * scale
+        if telemetry is not None:
+            telemetry.update_rpn_proposals(props_px,
+                                           gt_boxes.astype(np.float32))
 
         for k in topk_grid:
             top = props_px[:k]

@@ -238,6 +238,11 @@ def test_port_imports_without_jax_flax_msgpack_pandas(tmp_path):
         "import m3d_torch.train.mrcnn, m3d_torch.train.rpn\n"
         "import m3d_torch.data.datasets, m3d_torch.data.generators\n"
         "import m3d_torch.utils.unmold, m3d_torch.utils.tiffio\n"
+        "import m3d_torch.models.losses, m3d_torch.models.detection_targets\n"
+        "import m3d_torch.utils.minimask, m3d_torch.data.rpn_targets\n"
+        "import m3d_torch.data.augment, m3d_torch.train.optim\n"
+        "import m3d_torch.train.telemetry, m3d_torch.train.profiling\n"
+        "import m3d_torch.train.head\n"
         "from m3d_torch.data.synthetic import generate_experiment\n"
         "from m3d_torch.data.datasets import ToyDataset\n"
         "from m3d_torch.utils.tiffio import imread_volume\n"
