@@ -81,8 +81,36 @@ seconds:
   e2e_fit     fresh heads (JAX's initialiser distributions) on the tracked
               trunk and RPN, 20 e2e steps on one batch: the mean of the
               last five losses below the first; the e2e step split
+  targeting   TARGET_GENERATION on configs/milestone128/targeting_synth128
+              .json (TARGET_RATIO 1.0) over the six training volumes with
+              the tracked checkpoint: every file of every kept image and
+              both manifests; the padded kernel launched 2 per targeted
+              image (p = 7 and 14, 64 rows), each launch held against its
+              plain version; seconds per image by stage (forward, targets,
+              ROIAlign, write) and the bytes written
+  head_train  head-only HEAD_TRAINING (MODE "training") on those
+              artifacts, SGD 0.0005 / momentum 0.9, HEAD_WEIGHTS the
+              tracked checkpoint, one epoch: finite losses, the BatchNorm
+              parameters and running statistics bit-equal (as JAX leaves
+              them); then MRCNN_EVALUATION of its best.msgpack
+              (head_eval): det_recall >= 0.7
+  mrcnn_train writes ten more volumes (seeds 2006-2015, all in the train
+              split: 8 / 2 after the trainer's 80/20 split) and runs
+              MRCNN_TRAINING on the e2e config's model, LEARNING_LAYERS
+              "all", SGD 0.001 / momentum 0.9, from the tracked checkpoint,
+              one epoch: finite losses, trunk, FPN, RPN and head leaves
+              moved, the padded kernel launched 0 times in the train steps
+              (their ROIAligns take the gather, with gradients) and 2 per
+              validation step, each launch held against its plain version;
+              the step split and the gather's forward and backward ms; then
+              MRCNN_EVALUATION of its best.msgpack (mrcnn_eval):
+              det_recall >= 0.7
+  train_bn    TRAIN_BN on RPN_TRAINING (one epoch) and MRCNN_TRAINING (one
+              step): finite losses, every running statistic the run's
+              BatchNorms see moved in latest.msgpack; det@0.5_top500
+              printed without a floor
 Each training phase prints its step ms (CUDA events), the host ms to take
-each batch, the device's idle share and the peak memory.
+each batch, the device's idle share, the peak memory and its wall time.
 
 The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
@@ -112,6 +140,12 @@ FP32_FLOPS = 67e12         # H100 SXM, float32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM, bf16 tensor cores, dense
 BATCH, SIZE = 4, 128
 RECALL_FLOOR = 0.7
+# TRAIN_BN witness: each trunk BatchNorm's running-statistic update against
+# float64 statistics of its bf16 input, relative to the update's own scale
+# ((1 - m) E[x^2] for the variance, (1 - m) sqrt(E[x^2]) for the mean).
+# float32 sums give ~1e-6; an unbiased variance would add var / E[x^2] /
+# (N - 1), up to 8e-3 at res5's N = 2 * 4^3 values.
+BN_UPDATE_TOL = 1e-3
 KERNEL_TOL = 1e-2          # x max|ref|: one bf16 rounding of the output
 FORCED_CAP = (8, 8, 16)    # fc_slab_cap that sends most rows to the slab kernel
 NMS_N, NMS_THR, NMS_K = 30000, 0.7, 3000  # hela: PRE_NMS_LIMIT, RPN NMS, POST_NMS
@@ -132,6 +166,15 @@ EVAL_IMAGES, EVAL_SEED = 4, 1000  # the bench volumes: make_volumes(4, 128)
 EVAL_STAGES = ("load", "inference", "unmold", "metrics", "artifacts")
 RPN_TRAIN_CONFIG = "configs/milestone128/rpn_synth128_resume.json"
 E2E_CONFIG = "configs/milestone128/heads_e2e_synth128_resume.json"
+TARGET_CONFIG = "configs/milestone128/targeting_synth128.json"
+# configs/heads/scp_heads_config.json's and configs/mrcnn/
+# scp_mrcnn_training.json's optimisers.
+HEAD_OPTIMIZER = {"name": "SGD", "parameters": {"learning_rate": 0.0005,
+                                                "momentum": 0.9}}
+MRCNN_OPTIMIZER = {"name": "SGD", "parameters": {"learning_rate": 0.001,
+                                                 "momentum": 0.9}}
+# MRCNN_TRAINING volumes, all in the train split (seeds 2006-2015).
+MRCNN_IMAGES, MRCNN_SEED = 10, 2006
 # Training volumes: four for two training batches of 2, two for one test
 # batch (seeds 2000-2005, none of them a bench volume).
 TRAIN_IMAGES, TRAIN_SEED, TRAIN_TEST_RATIO = 6, 2000, 0.34
@@ -968,15 +1011,42 @@ def rpn_train_run(here: str, tmp: str, smi: str) -> dict:
     return dict(timing, wall_s=wall, epoch=epoch, split=split)
 
 
+def padded_shapes(calls, name: str) -> dict:
+    """#3 at the shapes of ``calls`` (captured roialign_padded arguments,
+    one per pool size): kernel, plain and library ms (CUDA events) beside
+    the bound, keyed "p7" / "p14"."""
+    from m3d_torch.ops import roialign_compact as rc
+
+    shapes = {}
+    for args in calls:
+        levels, pos, fms, n_per = args
+        n, _, p = pos.shape
+        compact = (levels, torch.div(
+            torch.arange(n, device=pos.device, dtype=torch.int32), n_per,
+            rounding_mode="floor"), torch.tensor(n, dtype=torch.int32,
+                                                 device=pos.device), pos, fms)
+        library = grid_sample_call(compact)
+        library()
+        bound_ms, bound_by, unit = kernel_bound_ms(compact)
+        shapes[f"p{p}"] = {
+            "rows": n, "ms": cuda_ms(lambda: rc.roialign_padded(*args), 50),
+            "plain_ms": cuda_ms(lambda: rc.roialign_compact_plain(*compact),
+                                2),
+            "library_ms": cuda_ms(library, 10), "bound_ms": bound_ms,
+            "bound_by": bound_by}
+        phase(name, f"roialign_padded at p={p}, {n} rows: "
+              f"{json.dumps(shapes[f'p{p}'])} ({unit})")
+    return shapes
+
+
 def e2e_train_run(here: str, tmp: str, smi: str, errs: dict):
     """e2e HEAD_TRAINING through the port's CLI, in this process: one
     epoch from the tracked checkpoint. Every #3 launch (2 per train step,
     2 per validation step) is held against its plain version; the trunk of
     latest.msgpack must equal the checkpoint's, some head leaf must
-    differ. Returns (timing, best.msgpack path, #3 launches)."""
+    differ. Returns (timing, best.msgpack path, the run's launch counts)."""
     from m3d_torch import __main__ as cli
     from m3d_torch.checkpoints import load_params, params_from_jax
-    from m3d_torch.ops import roialign_compact as rc
 
     out = os.path.join(tmp, "out_e2e")
     wdir = os.path.join(out, "weights")
@@ -996,11 +1066,12 @@ def e2e_train_run(here: str, tmp: str, smi: str, errs: dict):
     finally:
         spy.restore()
     wall = time.perf_counter() - t
-    launches = rc.PADDED.launches
+    counts = launch_counts()
+    launches = counts["roialign_padded"]
     timing = train_timing("e2e_train", trainer, smi)
     (epoch,) = trainer.history
     phase("e2e_train", f"{wall:.2f}s, {timing['steps']} steps, kernel "
-          f"launches {launch_counts()}; epoch {json.dumps(epoch)}")
+          f"launches {counts}; epoch {json.dumps(epoch)}")
     if not np.isfinite(epoch["val_loss"]):
         raise AssertionError(f"e2e_train val_loss {epoch['val_loss']}")
     val_steps = 1   # min(val_steps 2, one test batch)
@@ -1013,25 +1084,7 @@ def e2e_train_run(here: str, tmp: str, smi: str, errs: dict):
         errs["roialign_padded"].append(compare_padded(
             args, f"e2e_train captured roialign_padded call {i} "
                   f"(p={args[1].shape[-1]})"))
-    shapes = {}
-    for args in calls[:2]:      # the first train step: p = 7, then 14
-        levels, pos, fms, n_per = args
-        n, _, p = pos.shape
-        compact = (levels, torch.div(
-            torch.arange(n, device=pos.device, dtype=torch.int32), n_per,
-            rounding_mode="floor"), torch.tensor(n, dtype=torch.int32,
-                                                 device=pos.device), pos, fms)
-        library = grid_sample_call(compact)
-        library()
-        bound_ms, bound_by, unit = kernel_bound_ms(compact)
-        shapes[f"p{p}"] = {
-            "rows": n, "ms": cuda_ms(lambda: rc.roialign_padded(*args), 50),
-            "plain_ms": cuda_ms(lambda: rc.roialign_compact_plain(*compact),
-                                2),
-            "library_ms": cuda_ms(library, 10), "bound_ms": bound_ms,
-            "bound_by": bound_by}
-        phase("e2e_train", f"roialign_padded at p={p}, {n} rows: "
-              f"{json.dumps(shapes[f'p{p}'])} ({unit})")
+    shapes = padded_shapes(calls[:2], "e2e_train")  # the first train step
     check_ckpt_files("e2e_train", wdir)
     src = params_from_jax(load_params(ckpt)[0])
     saved = params_from_jax(load_params(os.path.join(wdir,
@@ -1051,7 +1104,7 @@ def e2e_train_run(here: str, tmp: str, smi: str, errs: dict):
           f"{len(heads)} head leaves changed; #3 launches {launches} = 2 x "
           f"{timing['steps']} train + 2 x {val_steps} val steps")
     return dict(timing, wall_s=wall, epoch=epoch, padded=shapes), \
-        os.path.join(wdir, "best.msgpack"), launches
+        os.path.join(wdir, "best.msgpack"), counts
 
 
 def e2e_fit_run(here: str, tmp: str, smi: str) -> dict:
@@ -1101,6 +1154,520 @@ def e2e_fit_run(here: str, tmp: str, smi: str) -> dict:
     split = e2e_step_split(trainer, opt, batch)
     phase("e2e_fit", f"e2e step split ms (CUDA events, mean of 3): {split}")
     return dict(timing, split=split)
+
+
+def leaf_groups(state: dict) -> dict:
+    """Leaf names by group: trunk (ResNet), FPN, RPN, heads, BatchNorm
+    parameters outside the heads, and running statistics."""
+    groups = {"resnet": [], "fpn": [], "rpn": [], "heads": [],
+              "trunk_bn": [], "stats": []}
+    for k in state:
+        if k.endswith(("running_mean", "running_var")):
+            groups["stats"].append(k)
+        elif "mrcnn_" in k:
+            groups["heads"].append(k)
+        elif any("bn" in seg.lower() for seg in k.split(".")):
+            groups["trunk_bn"].append(k)
+        else:
+            groups[k.split(".")[0]].append(k)
+    return groups
+
+
+def saved_vs(src: dict, path: str) -> tuple[dict, list]:
+    """(the leaves of checkpoint ``path``, the names that differ from
+    ``src``)."""
+    from m3d_torch.checkpoints import load_params, params_from_jax
+
+    saved = params_from_jax(load_params(path)[0])
+    if saved.keys() != src.keys():
+        raise AssertionError(f"{path}: leaves differ from the checkpoint's")
+    return saved, [k for k in src if not torch.equal(src[k], saved[k])]
+
+
+def targeting_run(here: str, tmp: str, smi: str, errs: dict):
+    """TARGET_GENERATION through the port's CLI on the training volumes
+    (TARGET_RATIO 1.0: every image of both splits), artifacts under
+    DATA_DIR/head_targets. Every #3 launch (2 per targeted image, p = 7
+    and 14) is held against its plain version; every file of every kept
+    image and both manifests must exist. Returns (timing, output root,
+    the run's launch counts)."""
+    import csv
+
+    from m3d_torch import __main__ as cli
+    from m3d_torch.train import rpn as trpn
+
+    data = os.path.join(tmp, "train_data")
+    out = os.path.join(tmp, "out_targeting")
+    path = write_config(
+        os.path.join(here, TARGET_CONFIG), os.path.join(tmp, "target.json"),
+        DATA_DIR=data, OUTPUT_DIR=out, WEIGHT_DIR=os.path.join(out, "weights"),
+        RPN_WEIGHTS=os.path.join(here, CHECKPOINT), TARGET_RATIO=1.0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    spy = Spy()
+    real = trpn.RPNTrainer.head_target_generation
+    trainers = []   # the CLI's trainer, for its per-image stage seconds
+
+    def capture(obj, *args, **kw):
+        trainers.append(obj)
+        return real(obj, *args, **kw)
+
+    trpn.RPNTrainer.head_target_generation = capture
+    t = time.perf_counter()
+    try:
+        root, manifests = cli.main(["--task", "TARGET_GENERATION",
+                                    "--config_path", path])
+        torch.cuda.synchronize()
+    finally:
+        spy.restore()
+        trpn.RPNTrainer.head_target_generation = real
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    launches = counts["roialign_padded"]
+    trainer = trainers[0]
+    if root != os.path.join(data, "head_targets"):
+        raise AssertionError(f"targeting: output root {root}")
+    kept, processed = 0, 0
+    for split in ("train", "test"):
+        with open(os.path.join(data, "datasets", f"{split}.csv")) as f:
+            processed += sum(1 for _ in f) - 1
+        with open(manifests[split], newline="") as f:
+            rows = list(csv.reader(f))
+        if rows[0] != list(trpn.TARGET_KEYS):
+            raise AssertionError(f"targeting: {split} manifest header "
+                                 f"{rows[0]}")
+        absent = [p for r in rows[1:] for p in r if not os.path.exists(p)]
+        if absent or len(rows) < 2:
+            raise AssertionError(f"targeting: {split}: {len(rows) - 1} "
+                                 f"images, files missing {absent}")
+        kept += len(rows) - 1
+    calls = spy.calls["roialign_padded"]
+    if launches != 2 * processed or len(calls) != launches:
+        raise AssertionError(f"targeting: {launches} roialign_padded "
+                             f"launches, {len(calls)} calls, want 2 x "
+                             f"{processed} images")
+    for i, args in enumerate(calls):
+        errs["roialign_padded"].append(compare_padded(
+            args, f"targeting captured roialign_padded call {i} "
+                  f"(p={args[1].shape[-1]})"))
+    times = trainer.target_times
+    stages = ("forward", "targets", "roialign", "write")
+    per_image = {k: float(np.mean([tm[k] for tm in times])) for k in stages}
+    written = int(sum(tm["bytes"] for tm in times))
+    timing = {"images_processed": processed, "images_kept": kept,
+              "seconds_per_image": per_image, "bytes_written": written,
+              "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "wall_s": wall}
+    print(f"[{smi}] targeting timing: {json.dumps(timing)}", flush=True)
+    phase("targeting", f"{wall:.2f}s, {kept} of {processed} images kept, "
+          f"{written / 1e6:.1f} MB written, kernel launches {counts}: #3 "
+          f"{launches} = 2 x {processed} images; mean seconds per image "
+          f"{per_image}")
+    timing["padded"] = padded_shapes(calls[:2], "targeting")
+    return timing, root, counts
+
+
+def head_train_run(here: str, tmp: str, smi: str, root: str):
+    """Head-only HEAD_TRAINING (MODE "training") through the port's CLI on
+    the targeting artifacts: the targeting config's model, SGD 0.0005 /
+    momentum 0.9 (configs/heads/scp_heads_config.json), HEAD_WEIGHTS the
+    tracked checkpoint, one epoch. The optimiser covers every leaf as in
+    JAX, so weight decay moves the trunk's decayed kernels; its BatchNorm
+    parameters and every running statistic must stay bit-equal. Returns
+    (timing, best.msgpack path, kernel launches)."""
+    from m3d_torch import __main__ as cli
+    from m3d_torch.checkpoints import load_params, params_from_jax
+
+    out = os.path.join(tmp, "out_head")
+    wdir = os.path.join(out, "weights")
+    ckpt = os.path.join(here, CHECKPOINT)
+    path = write_config(
+        os.path.join(here, TARGET_CONFIG), os.path.join(tmp, "head.json"),
+        DATA_DIR=root, OUTPUT_DIR=out, WEIGHT_DIR=wdir, MODE="training",
+        OPTIMIZER=HEAD_OPTIMIZER, RPN_WEIGHTS=None, HEAD_WEIGHTS=ckpt,
+        EPOCHS=1, FROM_EPOCH=0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    trainer = cli.main(["--task", "HEAD_TRAINING", "--config_path", path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    timing = train_timing("head_train", trainer, smi)
+    (epoch,) = trainer.history
+    phase("head_train", f"{wall:.2f}s, {timing['steps']} steps, kernel "
+          f"launches {launches}; epoch {json.dumps(epoch)}")
+    if not np.isfinite(epoch["val_loss"]):
+        raise AssertionError(f"head_train val_loss {epoch['val_loss']}")
+    check_ckpt_files("head_train", wdir)
+    src = params_from_jax(load_params(ckpt)[0])
+    _, moved = saved_vs(src, os.path.join(wdir, "latest.msgpack"))
+    groups = leaf_groups(src)
+    kept = groups["trunk_bn"] + groups["stats"]
+    if set(kept) & set(moved):
+        raise AssertionError(f"head_train: leaves JAX leaves unchanged "
+                             f"moved: {sorted(set(kept) & set(moved))}")
+    heads = [k for k in groups["heads"] if k in moved]
+    if not heads:
+        raise AssertionError("head_train: no head leaf changed")
+    phase("head_train", f"{len(kept)} BatchNorm leaves and running "
+          f"statistics bit-equal to the checkpoint; {len(heads)} of "
+          f"{len(groups['heads'])} head leaves and {len(moved) - len(heads)}"
+          f" trunk leaves (weight decay) changed")
+    return dict(timing, wall_s=wall, epoch=epoch), \
+        os.path.join(wdir, "best.msgpack"), launches
+
+
+def all_train(data: str) -> None:
+    """Put every volume of ``data`` into its train split (the MRCNN
+    trainer splits the train split 80/20 itself)."""
+    import csv
+
+    rows = []
+    for split in ("train", "test"):
+        with open(os.path.join(data, "datasets", f"{split}.csv"),
+                  newline="") as f:
+            got = list(csv.reader(f))
+        header, rows = got[0], rows + got[1:]
+    for split, part in (("train", rows), ("test", [])):
+        with open(os.path.join(data, "datasets", f"{split}.csv"), "w",
+                  newline="") as f:
+            csv.writer(f).writerows([header] + sorted(part))
+
+
+def mrcnn_step_split(trainer, batch) -> dict:
+    """The MRCNN train step's parts (LEARNING_LAYERS "all"), chained as
+    MrcnnTrainer._outputs and make_train_step chain them, with a fresh
+    optimiser over the trained model; and the gather ROIAlign alone at the
+    step's shapes, forward and backward."""
+    from m3d_torch.models import losses as L
+    from m3d_torch.models.detection_targets import detection_targets_batch
+    from m3d_torch.ops.roialign3d import pyramid_roi_align_auto
+    from m3d_torch.train.head import head_losses
+    from m3d_torch.train.optim import Optimizer, apply_constraints
+
+    cfg, model = trainer.config, trainer.model
+    params = dict(model.named_parameters())
+    opt = Optimizer(cfg, params)
+    gen = torch.Generator(trainer.device).manual_seed(3)
+    active = torch.ones((batch["image"].shape[0], int(cfg.NUM_CLASSES)),
+                        device=trainer.device)
+    meta = batch["image_meta"].float()
+    st = {}
+
+    def rpn(_):
+        for p in params.values():
+            p.grad = None
+        st["rpn"] = model.rpn_outputs(batch["image"], trainer._anchors_dev)
+        st["rpn_loss"] = (
+            L.rpn_class_loss(batch["rpn_match"],
+                             st["rpn"]["rpn_class_logits"])[0]
+            + L.rpn_bbox_loss(batch["rpn_bbox"], batch["rpn_match"],
+                              st["rpn"]["rpn_bbox"])[0])
+
+    def targets(_):
+        st["t"] = detection_targets_batch(
+            st["rpn"]["proposals"], batch["gt_class_ids"], batch["gt_boxes"],
+            batch["gt_masks"], cfg.BBOX_STD_DEV,
+            int(cfg.TRAIN_ROIS_PER_IMAGE), float(cfg.ROI_POSITIVE_RATIO),
+            float(cfg.RPN_POSITIVE_IOU), float(cfg.RPN_NEGATIVE_IOU),
+            tuple(int(v) for v in cfg.MASK_SHAPE),
+            use_mini_mask=bool(cfg.USE_MINI_MASK), generator=gen)
+
+    def align(_):
+        feats = list(st["rpn"]["feature_maps"][:4])
+        return [pyramid_roi_align_auto(st["t"]["rois"], meta, feats, int(q))
+                for q in (cfg.POOL_SIZE, cfg.MASK_POOL_SIZE)]
+
+    def heads(aligned):
+        out = model.forward_heads(*aligned)
+        t = st["t"]
+        return st["rpn_loss"] + head_losses(
+            cfg, out, {"target_class_ids": t["class_ids"],
+                       "target_bbox": t["deltas"],
+                       "target_mask": t["masks"]}, active)[0]
+
+    split = _split_ms([
+        ("RPN forward + losses", rpn), ("targets", targets),
+        ("ROIAlign forward (gather) x2", align),
+        ("heads forward + losses", heads),
+        ("backward", lambda loss: loss.backward()),
+        ("optimizer + constraints", lambda _: (opt.step(), apply_constraints(
+            params)))])
+    # The gather alone, on the step's feature maps (with their graph).
+    feats = [f.detach().requires_grad_(True)
+             for f in st["rpn"]["feature_maps"][:4]]
+    rois = st["t"]["rois"]
+    gather = {}
+    for q in (cfg.POOL_SIZE, cfg.MASK_POOL_SIZE):
+        def fwd(q=q):
+            return pyramid_roi_align_auto(rois, meta, feats, int(q))
+        out = fwd()
+        cot = torch.randn_like(out)
+
+        def bwd(out=out, cot=cot):
+            torch.autograd.grad(out, feats, cot, retain_graph=True)
+        bwd()
+        gather[f"p{q}"] = {"rows": int(rois.shape[0] * rois.shape[1]),
+                           "forward_ms": cuda_ms(fwd, 5),
+                           "backward_ms": cuda_ms(bwd, 5)}
+    return split, gather
+
+
+def mrcnn_train_run(here: str, tmp: str, smi: str, errs: dict):
+    """MRCNN_TRAINING through the port's CLI on 10 more 128^3 volumes
+    (seeds MRCNN_SEED.., all in the train split: the 80/20 split gives 8 /
+    2, four steps of B = 2 and one validation batch), the e2e config's
+    model with LEARNING_LAYERS "all", SGD 0.001 / momentum 0.9
+    (configs/mrcnn/scp_mrcnn_training.json), RPN_WEIGHTS and HEAD_WEIGHTS
+    the tracked checkpoint, one epoch. #3 must run 0 times in the train
+    steps (their ROIAligns take the gather, with gradients) and 2 per
+    validation step, each launch held against its plain version; trunk,
+    FPN, RPN and head leaves must all move. Returns (timing, best.msgpack
+    path, the run's launch counts)."""
+    from m3d_torch import __main__ as cli
+    from m3d_torch.checkpoints import load_params, params_from_jax
+    from m3d_torch.data.datasets import ToyDataset
+    from m3d_torch.data.generators import MrcnnGenerator, to_device
+    from m3d_torch.data.synthetic import generate_experiment, split_dataset
+    from m3d_torch.ops import roialign_compact as rc
+    from m3d_torch.train import mrcnn as tmrcnn
+
+    data = os.path.join(tmp, "mrcnn_data")
+    t = time.perf_counter()
+    generate_experiment(MRCNN_IMAGES, SIZE, data, seed=MRCNN_SEED)
+    split_dataset(data)
+    all_train(data)
+    phase("mrcnn_train", f"dataset of {MRCNN_IMAGES} volumes {SIZE}^3 "
+          f"written in {time.perf_counter() - t:.2f}s")
+    out = os.path.join(tmp, "out_mrcnn")
+    wdir = os.path.join(out, "weights")
+    ckpt = os.path.join(here, CHECKPOINT)
+    path = write_config(
+        os.path.join(here, E2E_CONFIG), os.path.join(tmp, "mrcnn.json"),
+        DATA_DIR=data, OUTPUT_DIR=out, WEIGHT_DIR=wdir, MODE="training",
+        LEARNING_LAYERS="all", OPTIMIZER=MRCNN_OPTIMIZER, RPN_WEIGHTS=ckpt,
+        HEAD_WEIGHTS=ckpt, EPOCHS=1)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    spy = Spy()
+    real_steps = tmrcnn.MrcnnTrainer.make_train_step
+    in_steps = []   # #3 launches within each train step
+
+    def counted(obj, *args, **kw):
+        step = real_steps(obj, *args, **kw)
+
+        def run(batch):
+            before = rc.PADDED.launches
+            out = step(batch)
+            in_steps.append(rc.PADDED.launches - before)
+            return out
+        return run
+
+    tmrcnn.MrcnnTrainer.make_train_step = counted
+    t = time.perf_counter()
+    try:
+        trainer = cli.main(["--task", "MRCNN_TRAINING", "--config_path",
+                            path])
+        torch.cuda.synchronize()
+    finally:
+        spy.restore()
+        tmrcnn.MrcnnTrainer.make_train_step = real_steps
+    wall = time.perf_counter() - t
+    counts = launch_counts()
+    launches = counts["roialign_padded"]
+    timing = train_timing("mrcnn_train", trainer, smi)
+    (epoch,) = trainer.history
+    phase("mrcnn_train", f"{wall:.2f}s, {timing['steps']} steps, kernel "
+          f"launches {counts}; epoch {json.dumps(epoch)}")
+    if not np.isfinite(epoch["val_loss"]):
+        raise AssertionError(f"mrcnn_train val_loss {epoch['val_loss']}")
+    val_steps = 1   # min(VAL_STEPS 4, one batch of the 2 held-out volumes)
+    calls = spy.calls["roialign_padded"]
+    if (any(in_steps) or len(in_steps) != timing["steps"]
+            or launches != 2 * val_steps or len(calls) != launches):
+        raise AssertionError(f"mrcnn_train: #3 launches {in_steps} in the "
+                             f"train steps, {launches} in all, {len(calls)} "
+                             f"calls; want 0 and 2 x {val_steps}")
+    for i, args in enumerate(calls):
+        errs["roialign_padded"].append(compare_padded(
+            args, f"mrcnn_train captured roialign_padded call {i} "
+                  f"(p={args[1].shape[-1]})"))
+    check_ckpt_files("mrcnn_train", wdir)
+    src = params_from_jax(load_params(ckpt)[0])
+    _, moved = saved_vs(src, os.path.join(wdir, "latest.msgpack"))
+    groups = leaf_groups(src)
+    count = {g: sum(k in moved for k in groups[g])
+             for g in ("resnet", "fpn", "rpn", "heads")}
+    if not all(count.values()):
+        raise AssertionError(f"mrcnn_train: leaves moved by group {count}")
+    phase("mrcnn_train", f"leaves moved by group {count}; #3 launches "
+          f"{in_steps} in the train steps, {launches} = 2 x {val_steps} "
+          f"validation steps")
+    ds = ToyDataset()
+    ds.load_dataset(data, is_train=True,
+                    class_names=tuple(trainer.config.CLASS_NAMES))
+    ds.prepare()
+    batch = to_device(MrcnnGenerator(ds, trainer.config, mode="training",
+                                     augment=False).get_batch([0, 1]),
+                      trainer.device)
+    split, gather = mrcnn_step_split(trainer, batch)
+    phase("mrcnn_train", f"step split ms (CUDA events, mean of 3): {split}")
+    phase("mrcnn_train", f"gather ROIAlign at the step's shapes (CUDA "
+          f"events): {json.dumps(gather)}")
+    return dict(timing, wall_s=wall, epoch=epoch, split=split,
+                gather=gather, padded=padded_shapes(calls[:2],
+                                                    "mrcnn_train")), \
+        os.path.join(wdir, "best.msgpack"), counts
+
+
+def train_bn_run(here: str, tmp: str, smi: str):
+    """TRAIN_BN: RPN_TRAINING for one epoch and MRCNN_TRAINING for one
+    step (the training volumes' four train images: a split of three and
+    one, no validation batch) from the tracked checkpoint. Finite losses;
+    every running statistic the run's BatchNorms see (the trunk's for
+    RPN_TRAINING, all for MRCNN_TRAINING) differs in latest.msgpack from
+    the checkpoint's. Prints det@0.5_top500 without a floor. Returns
+    (timings by run, kernel launches of both runs)."""
+    from m3d_torch import __main__ as cli
+    from m3d_torch.checkpoints import load_params, params_from_jax
+
+    ckpt = os.path.join(here, CHECKPOINT)
+    src = params_from_jax(load_params(ckpt)[0])
+    stats = leaf_groups(src)["stats"]
+    data = os.path.join(tmp, "train_data")
+    with open(os.path.join(here, RPN_TRAIN_CONFIG)) as f:
+        from_epoch = int(json.load(f)["FROM_EPOCH"])
+    runs = {
+        "rpn": ("RPN_TRAINING", RPN_TRAIN_CONFIG,
+                dict(RPN_WEIGHTS=ckpt, EPOCHS=from_epoch + 1),
+                [k for k in stats if k.startswith("resnet.")]),
+        "mrcnn": ("MRCNN_TRAINING", E2E_CONFIG,
+                  dict(MODE="training", LEARNING_LAYERS="all",
+                       OPTIMIZER=MRCNN_OPTIMIZER, RPN_WEIGHTS=ckpt,
+                       HEAD_WEIGHTS=ckpt, EPOCHS=1), stats)}
+    result, launches = {}, {}
+    for name, (task, config, keys, seen) in runs.items():
+        out = os.path.join(tmp, f"out_bn_{name}")
+        wdir = os.path.join(out, "weights")
+        path = write_config(os.path.join(here, config),
+                            os.path.join(tmp, f"bn_{name}.json"),
+                            DATA_DIR=data, OUTPUT_DIR=out, WEIGHT_DIR=wdir,
+                            TRAIN_BN=True, **keys)
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t = time.perf_counter()
+        trainer = cli.main(["--task", task, "--config_path", path])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        for k, n in launch_counts().items():
+            launches[k] = launches.get(k, 0) + n
+        timing = train_timing(f"train_bn {name}", trainer, smi)
+        (epoch,) = trainer.history
+        _, moved = saved_vs(src, os.path.join(wdir, "latest.msgpack"))
+        still = [k for k in seen if k not in moved]
+        if still:
+            raise AssertionError(f"train_bn {name}: running statistics "
+                                 f"unchanged: {still}")
+        phase("train_bn", f"{task} {wall:.2f}s, {timing['steps']} steps, "
+              f"all {len(seen)} running statistics its BatchNorms see "
+              f"moved; epoch {json.dumps(epoch)}")
+        result[name] = dict(timing, wall_s=wall, epoch=epoch)
+        if name == "rpn":
+            result[name]["witness"] = train_bn_witness(
+                trainer, src, os.path.join(wdir, "latest.msgpack"), stats)
+    phase("train_bn", f"RPN det@0.5_top500 after one TRAIN_BN epoch "
+          f"{result['rpn']['epoch']['det@0.5_top500']} (no floor); kernel "
+          f"launches {launches}")
+    return result, launches
+
+
+def train_bn_witness(trainer, src: dict, latest: str, stats: list) -> dict:
+    """Where the TRAIN_BN RPN epoch's det@0.5_top500 comes from. The
+    tracked checkpoint was trained on running statistics and every one of
+    them is still at its initial value (mean 0, variance 1), so batch
+    statistics are a different function of its weights. (1) det@0.5_top500
+    of the epoch's evaluation (the same test volumes, EVAL_IMAGES) for the
+    trained weights with the checkpoint's statistics put back, and for the
+    checkpoint's weights with the trained statistics: which of the two
+    carries the change. (2) One more TRAIN_BN forward on a training batch:
+    each trunk BatchNorm's running statistics must move to m * old + (1 -
+    m) * batch, the batch's mean and biased variance taken in float64 from
+    the layer's own bf16 input, within BN_UPDATE_TOL of E[x^2] (mean: of
+    its square root). Returns the numbers."""
+    from m3d_torch.checkpoints import restore_by_name
+    from m3d_torch.data.generators import RPNGenerator, to_device
+    from m3d_torch.models.backbone import BatchNorm
+    from m3d_torch.train.rpn import EVAL_IMAGES
+    from m3d_torch.utils.metrics import rpn_evaluation
+
+    at_init = [k for k in stats if not torch.equal(
+        src[k], torch.full_like(src[k], 0.0 if k.endswith("mean") else 1.0))]
+    model, cfg = trainer.model, trainer.config
+    saved, _ = saved_vs(src, latest)
+    _, test_ds = trainer.prepare_datasets()
+    det = {}
+    for label, weights, running in (
+            ("trained", saved, saved),
+            ("trained weights, checkpoint statistics", saved, src),
+            ("checkpoint weights, trained statistics", src, saved)):
+        restore_by_name(model, {k: (running if k in stats else weights)[k]
+                                for k in src})
+        det[label] = rpn_evaluation(
+            trainer.make_proposal_fn(), test_ds, cfg,
+            max_images=EVAL_IMAGES)["det@0.5_top500"]
+    phase("train_bn", f"checkpoint running statistics not at their initial "
+          f"value: {len(at_init)} of {len(stats)}; det@0.5_top500 on the "
+          f"epoch's test volumes: {json.dumps(det)}")
+
+    restore_by_name(model, saved)
+    train_ds, _ = trainer.prepare_datasets()
+    batch = to_device(RPNGenerator(train_ds, cfg, mode="training",
+                                   shuffle=False, augment=False
+                                   ).get_batch([0, 1]), trainer.device)
+    want = {}
+
+    def expect(mod, args):
+        x = args[0].detach().double()
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes)
+        ex2 = (x * x).mean(axes)
+        m = mod.momentum
+        want[mod] = (m * mod.running_mean.double() + (1 - m) * mean,
+                     m * mod.running_var.double()
+                     + (1 - m) * x.var(axes, correction=0),
+                     (1 - m) * ex2, args[0].dtype)
+
+    bns = [mod for mod in model.resnet.modules() if isinstance(mod, BatchNorm)]
+    hooks = [mod.register_forward_pre_hook(expect) for mod in bns]
+    try:
+        with torch.no_grad():
+            model.bn_mode(True)
+            model.forward_rpn_train(batch["image"])
+            torch.cuda.synchronize()
+    finally:
+        model.bn_mode(False)
+        for h in hooks:
+            h.remove()
+    err_mean = err_var = 0.0
+    for mod in bns:
+        mean, var, scale, _ = want[mod]   # scale: (1 - m) E[x^2]
+        m = mod.momentum
+        d_mean = (mod.running_mean.double() - mean).abs()
+        d_var = (mod.running_var.double() - var).abs()
+        err_mean = max(err_mean, float((d_mean / ((1 - m) * scale).sqrt()
+                                        .clamp_min(1e-30)).max()))
+        err_var = max(err_var, float((d_var / scale.clamp_min(1e-30)).max()))
+    dtypes = sorted({str(w[3]) for w in want.values()})
+    phase("train_bn", f"{len(bns)} trunk BatchNorms, inputs {dtypes}: "
+          f"running statistics after one more TRAIN_BN forward against "
+          f"float64 batch statistics: mean {err_mean:.3e}, variance "
+          f"{err_var:.3e} of the update's scale (tolerance {BN_UPDATE_TOL})")
+    if len(want) != len(bns) or max(err_mean, err_var) > BN_UPDATE_TOL:
+        raise AssertionError(f"train_bn: BatchNorm update off: mean "
+                             f"{err_mean}, variance {err_var}")
+    return {"det@0.5_top500": det, "stats_not_at_init": len(at_init),
+            "bn_update_err": {"mean": err_mean, "var": err_var}}
 
 
 def matched_detections(det_ref, valid_ref, det, valid) -> int:
@@ -1579,6 +2146,18 @@ def main() -> int:
         train_eval_launch, _ = eval_run(
             here, tmp, "train_eval", smi, errs, HEAD_WEIGHTS=best)
         e2e_fit = e2e_fit_run(here, tmp, smi)
+
+        # targeting / head_train / mrcnn_train / train_bn: the rest of the
+        # training surface
+        target, root, target_launch = targeting_run(here, tmp, smi, errs)
+        head, head_best, head_launch = head_train_run(here, tmp, smi, root)
+        head_eval_launch, _ = eval_run(here, tmp, "head_eval", smi, errs,
+                                       HEAD_WEIGHTS=head_best)
+        mrcnn, mrcnn_best, mrcnn_launch = mrcnn_train_run(here, tmp, smi,
+                                                          errs)
+        mrcnn_eval_launch, _ = eval_run(here, tmp, "mrcnn_eval", smi, errs,
+                                        HEAD_WEIGHTS=mrcnn_best)
+        train_bn, bn_launch = train_bn_run(here, tmp, smi)
         print(f"[{smi}] training steps: " + json.dumps({
             "rpn_train": {k: rpn_train[k] for k in (
                 "step_ms_median_after_first", "host_ms_median_after_first",
@@ -1588,8 +2167,18 @@ def main() -> int:
                 "peak_gib", "wall_s")},
             "e2e_fit": {k: e2e_fit[k] for k in (
                 "step_ms_median_after_first", "peak_gib")},
+            "targeting": {k: target[k] for k in (
+                "seconds_per_image", "bytes_written", "peak_gib", "wall_s")},
+            **{name: {k: run[k] for k in (
+                "step_ms_median_after_first", "host_ms_median_after_first",
+                "device_idle_share", "peak_gib", "wall_s")} for name, run in (
+                ("head_train", head), ("mrcnn_train", mrcnn),
+                ("train_bn rpn", train_bn["rpn"]),
+                ("train_bn mrcnn", train_bn["mrcnn"]))},
             "rpn_split_ms": rpn_train["split"],
-            "e2e_split_ms": e2e_fit["split"]}), flush=True)
+            "e2e_split_ms": e2e_fit["split"],
+            "mrcnn_split_ms": mrcnn["split"],
+            "mrcnn_gather_ms": mrcnn["gather"]}), flush=True)
     # The two graphs compute the same function: equal detection counts,
     # pixel metrics and dice within EVAL_METRIC_TOL (bf16 order only).
     for key in ("det_tp", "det_fp", "det_fn"):
@@ -1605,7 +2194,9 @@ def main() -> int:
           f"instance_dice within {EVAL_METRIC_TOL}")
     for key, n in (("adaptive", eval_launch["roialign_compact"]),
                    ("monolithic", mono_launch["roialign_fc (kron)"]),
-                   ("monolithic", mono_launch["roialign_padded"])):
+                   ("monolithic", mono_launch["roialign_padded"]),
+                   ("head_eval", head_eval_launch["roialign_compact"]),
+                   ("mrcnn_eval", mrcnn_eval_launch["roialign_compact"])):
         if n < 1:
             raise AssertionError(f"eval {key}: a kernel of its path was not "
                                  f"launched: {eval_launch} {mono_launch}")
@@ -1616,10 +2207,19 @@ def main() -> int:
             "eval (CLASSIFIER_CHUNK 0, MASK_CHUNK 0)": mono_launch.get(
                 name, 0),
             "rpn_eval": rpn_launch.get(name, 0),
-            "e2e_train": e2e_launch if name == "roialign_padded" else 0,
-            "train_eval": train_eval_launch.get(name, 0)}
-        if name == "roialign_padded":   # its calls in the e2e train step
+            "e2e_train": e2e_launch.get(name, 0),
+            "train_eval": train_eval_launch.get(name, 0),
+            "targeting": target_launch.get(name, 0),
+            "head_train": head_launch.get(name, 0),
+            "head_eval": head_eval_launch.get(name, 0),
+            "mrcnn_train": mrcnn_launch.get(name, 0),
+            "mrcnn_eval": mrcnn_eval_launch.get(name, 0),
+            "train_bn": bn_launch.get(name, 0)}
+        if name == "roialign_padded":   # its calls on the training paths
             k["e2e_train_shapes"] = e2e_train["padded"]
+            k["targeting_shapes"] = target["padded"]
+            k["mrcnn_validation_shapes"] = mrcnn["padded"]
+            k["mrcnn_train_step_gather"] = mrcnn["gather"]
 
     print(json.dumps({"kernels": kernels}), flush=True)
     faulthandler.cancel_dump_traceback_later()

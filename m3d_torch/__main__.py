@@ -6,17 +6,18 @@
                         --config_path configs/....json [--summary]
                         [--device {cuda,cpu}]
 
-The same JSON configs, on-disk datasets and artifacts as main.py. Ported:
-the two evaluation tasks, RPN_TRAINING, and HEAD_TRAINING with MODE
-"training_head_e2e". TARGET_GENERATION, MRCNN_TRAINING, head-only
-HEAD_TRAINING and the training options not ported yet (TRAIN_BN,
-AUTO_TUNE_RPN, GPU_COUNT > 1, .h5 weights) exit non-zero naming the
-ROADMAP.md item that brings them, having read nothing but the config. The
-model runs on the card unless ``--device cpu`` is given; with no card and no
-``--device cpu`` the command exits non-zero before it reads or writes
-anything. ``main(argv)`` returns the task's result (MRCNN_EVALUATION:
-{"summary", "per_image", "times"}; RPN_EVALUATION: the metrics dict;
-the training tasks: the trainer, whose ``model`` is trained and whose
+The same JSON configs, on-disk datasets and artifacts as main.py; all six
+tasks are ported. HEAD_TRAINING runs e2e with MODE "training_head_e2e" and
+head-only (from TARGET_GENERATION's artifacts) with any other MODE, as
+main.py dispatches it. The training options not ported yet (AUTO_TUNE_RPN,
+GPU_COUNT > 1, .h5 weights) exit non-zero naming the ROADMAP.md item that
+brings them, having read nothing but the config. The model runs on the
+card unless ``--device cpu`` is given; with no card and no ``--device
+cpu`` the command exits non-zero before it reads or writes anything.
+``main(argv)`` returns the task's result (MRCNN_EVALUATION: {"summary",
+"per_image", "times"}; RPN_EVALUATION: the metrics dict;
+TARGET_GENERATION: the pair (output root, {split: manifest path}); the
+training tasks: the trainer, whose ``model`` is trained and whose
 ``history`` and ``clock.records`` hold each epoch's metrics and each
 step's times), so a caller in the same process can read the kernels'
 launch counters after it.
@@ -37,8 +38,8 @@ TASKS = (
     "MRCNN_TRAINING",
     "MRCNN_EVALUATION",
 )
-PORTED = ("RPN_EVALUATION", "MRCNN_EVALUATION", "RPN_TRAINING",
-          "HEAD_TRAINING")
+TRAINING = ("RPN_TRAINING", "TARGET_GENERATION", "HEAD_TRAINING",
+            "MRCNN_TRAINING")
 
 
 def main(argv=None):
@@ -53,9 +54,6 @@ def main(argv=None):
                         help="where the model runs (default: the card)")
     args = parser.parse_args(argv)
 
-    if args.task not in PORTED:
-        raise SystemExit(f"{args.task}: not ported yet (ROADMAP.md §1); "
-                         f"run it with main.py")
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: torch.cuda.is_available() is False "
                          "(no usable NVIDIA card); pass --device cpu to run "
@@ -64,7 +62,7 @@ def main(argv=None):
     from m3d_torch.config import load_config, unported_training
 
     config = load_config(args.config_path)
-    if args.task in ("RPN_TRAINING", "HEAD_TRAINING"):
+    if args.task in TRAINING:
         why = unported_training(args.task, config)
         if why:
             raise SystemExit(f"{args.task}: {why}; run it with main.py")
@@ -79,12 +77,30 @@ def main(argv=None):
             trainer.history = trainer.train()[1]
         return trainer
 
+    if args.task == "TARGET_GENERATION":
+        from m3d_torch.train.rpn import RPNTrainer
+
+        trainer = RPNTrainer(config, device=args.device)
+        if args.summary:
+            return None
+        return trainer.head_target_generation()
+
     if args.task == "HEAD_TRAINING":
         from m3d_torch.train.head import HeadTrainer
 
         trainer = HeadTrainer(config, device=args.device)
         if not args.summary:
-            trainer.history = trainer.train_e2e()[1]
+            train = (trainer.train_e2e if config.MODE == "training_head_e2e"
+                     else trainer.train_head_only)
+            trainer.history = train()[1]
+        return trainer
+
+    if args.task == "MRCNN_TRAINING":
+        from m3d_torch.train.mrcnn import MrcnnTrainer
+
+        trainer = MrcnnTrainer(config, device=args.device)
+        if not args.summary:
+            trainer.history = trainer.train()[1]
         return trainer
 
     if args.task == "RPN_EVALUATION":

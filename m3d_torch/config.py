@@ -298,12 +298,6 @@ def unported_training(task: str, config) -> str | None:
     """Why ``task`` with this config cannot run on the port yet (the
     ROADMAP.md item that brings it), or None. Read from the config alone,
     before any other file is touched."""
-    if task == "HEAD_TRAINING" and config.MODE != "training_head_e2e":
-        return (f"HEAD_TRAINING with MODE {config.MODE!r} (head-only, from "
-                f"TARGET_GENERATION's artifacts): not ported yet "
-                f"(ROADMAP.md §1 item 5); only MODE 'training_head_e2e' is")
-    if bool(getattr(config, "TRAIN_BN", False)):
-        return "TRAIN_BN true: not ported yet (ROADMAP.md §1 item 5)"
     if task == "RPN_TRAINING" and bool(getattr(config, "AUTO_TUNE_RPN",
                                                False)):
         return ("AUTO_TUNE_RPN true: autotune.py is not ported yet "

@@ -1,11 +1,13 @@
-"""Dataset registry and the raw-volume loader (port of ``_pick_column``,
-``Dataset`` and ``ToyDataset`` in m3d/data/datasets.py; no pandas).
+"""Dataset registry and loaders (port of ``_pick_column``, ``Dataset``,
+``ToyDataset`` and ``ToyHeadDataset`` in m3d/data/datasets.py; no pandas).
 
 ``ToyDataset`` reads ``datasets/{train,test}.csv`` manifests (separator
 sniffed among ``,;\\t``, fuzzy column matching), TIFF images with the
 reference's (Z, Y, X) -> (Y, X, Z) transpose and the percentile-clip +
 z-score + tanh(x * 0.5) normalization, boxes from ``.dat`` files with the
 reference's column reorder [2, 3, 1, 5, 6, 4], and masks from bz2 pickles.
+``ToyHeadDataset`` reads TARGET_GENERATION's ``datasets/{train,test}.csv``
+manifests and their npz artifacts, bit-packed target masks included.
 """
 
 from __future__ import annotations
@@ -188,3 +190,81 @@ class ToyDataset(Dataset):
             n = min(masks.shape[-1], boxes.shape[0])
             masks, boxes, class_ids = masks[..., :n], boxes[:n], class_ids[:n]
         return boxes, class_ids, masks
+
+
+class ToyHeadDataset(Dataset):
+    """Pre-generated head-target artifacts written by target generation
+    (reference: core/data_generators.py:1781-1866). Manifest columns, by
+    name or alias: rois, rois_aligned (ra), mask_aligned (ma),
+    target_class_ids (tci), target_bbox (tb), target_mask (tm), each a
+    path to an .npz (or .npy) file."""
+
+    def load_dataset(self, data_dir, is_train=True):
+        self.add_class("dataset", 1, "neuron")
+        split = "train" if is_train else "test"
+        columns, rows = read_manifest(
+            os.path.join(data_dir, "datasets", f"{split}.csv"))
+        cols = {
+            "rois": _pick_column(columns, "rois"),
+            "ra": _pick_column(columns, "rois_aligned", "ra"),
+            "ma": _pick_column(columns, "mask_aligned", "ma"),
+            "tci": _pick_column(columns, "target_class_ids", "tci"),
+            "tb": _pick_column(columns, "target_bbox", "tb"),
+            "tm": _pick_column(columns, "target_mask", "tm"),
+        }
+        for i, row in enumerate(rows):
+            self.add_image("dataset", image_id=i, path=row[cols["rois"]],
+                           **{k: row[c] for k, c in cols.items()})
+
+    @staticmethod
+    def _load_array(path):
+        """The first array of an .npz, or an .npy."""
+        if str(path).endswith(".npz"):
+            with np.load(path, allow_pickle=True) as z:
+                return z[list(z.keys())[0]]
+        return np.load(path, allow_pickle=True)
+
+    @staticmethod
+    def _unpack_mask(arr, shape):
+        """Decode bit-packed masks (reference:
+        core/data_generators.py:1908-1921)."""
+        if arr.dtype == np.uint8 and arr.ndim == 1:
+            bits = np.unpackbits(arr, count=int(np.prod(shape)))
+            return bits.reshape(shape).astype(np.float32)
+        return arr.astype(np.float32)
+
+    def load_data(self, image_id):
+        """The six target arrays of one image, as a dict."""
+        info = self.image_info[image_id]
+        tm = self._load_array(info["tm"])
+        if tm.dtype == np.uint8 and tm.ndim == 1:
+            # Bit-packed: the shape is stored beside the bits.
+            with np.load(str(info["tm"]), allow_pickle=True) as z:
+                if "shape" not in z:
+                    raise ValueError(f"packed mask without shape: "
+                                     f"{info['tm']}")
+                tm = self._unpack_mask(z["mask"], tuple(z["shape"]))
+        else:
+            tm = tm.astype(np.float32)
+        return {
+            "rois": self._load_array(info["rois"]).astype(np.float32),
+            "rois_aligned": self._load_array(info["ra"]).astype(np.float32),
+            "mask_aligned": self._load_array(info["ma"]).astype(np.float32),
+            "target_class_ids": self._load_array(info["tci"]).astype(
+                np.int32),
+            "target_bbox": self._load_array(info["tb"]).astype(np.float32),
+            "target_mask": tm,
+        }
+
+    def filter_by_positive_count(self, min_positive: int = 1):
+        """Keep the images with at least ``min_positive`` positive
+        targets (unreadable ones are dropped)."""
+        keep = []
+        for i in range(len(self.image_info)):
+            try:
+                tci = self._load_array(self.image_info[i]["tci"])
+            except Exception:  # noqa: BLE001 — skip unreadable samples
+                continue
+            if int((np.asarray(tci) > 0).sum()) >= min_positive:
+                keep.append(i)
+        return self.subset(keep)

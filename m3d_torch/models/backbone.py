@@ -1,8 +1,9 @@
 """3D ResNet backbone (port of m3d/models/backbone.py).
 
 Conv3D stem 7^3 with explicit [(3, 3)] * 3 padding, max-pool 3^3 with SAME
-(-inf) padding, four bottleneck stages. BatchNorm is frozen: it uses the
-running statistics with eps 1e-5, as the JAX package does at inference.
+(-inf) padding, four bottleneck stages. BatchNorm (momentum 0.9, eps 1e-5)
+runs on its running statistics unless its ``batch_stats`` flag is set
+(TRAIN_BN: ``MaskRCNN.bn_mode``), as flax's ``use_running_average``.
 
 Submodule names follow the flax tree (``BNRelu_0``, ``Bottleneck_3``,
 ``res3a_branch2a`` ...) so a flax checkpoint maps onto this module by name
@@ -19,37 +20,60 @@ from m3d_torch.ops.conv3d import (ZConv, pad_channels_last, same_padding,
                                   to_channels_last, to_ncdhw)
 
 
-class FrozenBatchNorm(nn.Module):
-    """Inference BatchNorm on the last axis: (x - mean) * rsqrt(var + eps)
-    * weight + bias, computed in float32 and returned in ``dtype`` (flax
-    promotes to the float32 statistics, then casts to the module dtype)."""
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` on the last axis, in float32, the result in
+    ``dtype`` (flax promotes to the float32 statistics, then casts).
 
-    def __init__(self, features: int, eps: float = 1e-5,
-                 dtype: torch.dtype | None = None):
+    ``batch_stats`` False (the default, whatever ``nn.Module.training``
+    says): (x - running_mean) * rsqrt(running_var + eps) * weight + bias.
+    ``batch_stats`` True (TRAIN_BN): the batch's mean and biased variance
+    over every axis but the last (E[x^2] - E[x]^2 clamped at 0, as flax
+    computes it) normalise the batch, and the running statistics move as
+    flax moves them: ``ra = momentum * ra + (1 - momentum) * batch`` (the
+    opposite convention of torch.nn.BatchNorm's momentum, and the biased
+    variance)."""
+
+    def __init__(self, features: int, momentum: float = 0.99,
+                 eps: float = 1e-5, dtype: torch.dtype | None = None):
         super().__init__()
+        self.momentum = momentum
         self.eps = eps
         self.dtype = dtype
+        self.batch_stats = False
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        y = (x.float() - self.running_mean) * mul + self.bias
+        xf = x.float()
+        if self.batch_stats:
+            axes = tuple(range(x.dim() - 1))
+            mean = xf.mean(axes)
+            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1.0 - m) * mean)
+                self.running_var.copy_(m * self.running_var
+                                       + (1.0 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean) * mul + self.bias
         return y.to(self.dtype or x.dtype)
 
 
 class BNRelu(nn.Module):
-    """BatchNorm (+ optional relu); holds the flax BatchNorm under its
-    reference layer name."""
+    """BatchNorm (momentum 0.9) + optional relu; holds the flax BatchNorm
+    under its reference layer name."""
 
     def __init__(self, name_bn: str, features: int, relu: bool = True,
                  dtype=None):
         super().__init__()
         self.name_bn = name_bn
         self.relu = relu
-        self.add_module(name_bn, FrozenBatchNorm(features, dtype=dtype))
+        self.add_module(name_bn, BatchNorm(features, 0.9, dtype=dtype))
 
     def forward(self, x):
         x = getattr(self, self.name_bn)(x)

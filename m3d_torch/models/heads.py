@@ -1,13 +1,17 @@
 """FPN classifier and mask heads (port of m3d/models/heads.py).
 
-ClassifierHead: pool^3 "FC" conv -> 1^3 conv (both + frozen BN + relu) ->
-class logits Dense with the +-10 logit clip (straight-through: the gradient
-passes as identity) -> softmax; bbox Dense ``num_classes * 6``. The pool^3 VALID conv over a pool^3 input is one matrix
-product (m3d.ops.conv3d.conv3d_fc), computed here as one too.
+ClassifierHead: pool^3 "FC" conv -> 1^3 conv (both + BN momentum 0.9 +
+relu) -> class logits Dense with the +-10 logit clip (straight-through: the
+gradient passes as identity) -> softmax; bbox Dense ``num_classes * 6``.
+The pool^3 VALID conv over a pool^3 input is one matrix product
+(m3d.ops.conv3d.conv3d_fc), computed here as one too.
 
-MaskHead: 4x 3^3 convs with a dilated-residual block (conv3b, dilation 2,
-additive merge), a 2x transposed-conv upsample, a 1^3 conv in the compute
-dtype and a float32 sigmoid -> [B, T, 2m, 2m, 2m, num_classes].
+MaskHead: 4x 3^3 convs (BN at flax's default momentum 0.99) with a
+dilated-residual block (conv3b, dilation 2, additive merge), a 2x
+transposed-conv upsample, a 1^3 conv in the compute dtype and a float32
+sigmoid -> [B, T, 2m, 2m, 2m, num_classes]. Under TRAIN_BN every BN takes
+batch statistics over all rows, the zero-padded ROI rows included, as
+JAX's do.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from m3d_torch.models.backbone import FrozenBatchNorm
+from m3d_torch.models.backbone import BatchNorm
 from m3d_torch.ops.conv3d import ZConv, to_channels_last, to_ncdhw
 
 
@@ -42,10 +46,10 @@ class ClassifierHead(nn.Module):
         p = pool_size
         self.mrcnn_class_conv1 = ZConv(in_channels, fc_layers_size, (p, p, p),
                                        padding="VALID", dtype=dtype)
-        self.mrcnn_class_bn1 = FrozenBatchNorm(fc_layers_size, dtype=dtype)
+        self.mrcnn_class_bn1 = BatchNorm(fc_layers_size, 0.9, dtype=dtype)
         self.mrcnn_class_conv2 = ZConv(fc_layers_size, fc_layers_size,
                                        (1, 1, 1), dtype=dtype)
-        self.mrcnn_class_bn2 = FrozenBatchNorm(fc_layers_size, dtype=dtype)
+        self.mrcnn_class_bn2 = BatchNorm(fc_layers_size, 0.9, dtype=dtype)
         self.mrcnn_class_logits = Dense(fc_layers_size, num_classes)
         self.mrcnn_bbox_fc = Dense(fc_layers_size, num_classes * 6)
 
@@ -125,7 +129,7 @@ class MaskHead(nn.Module):
             self.add_module(conv, ZConv(cin, cc, (3, 3, 3),
                                         kernel_dilation=(dil,) * 3,
                                         dtype=dtype))
-            self.add_module(bn, FrozenBatchNorm(cc, dtype=dtype))
+            self.add_module(bn, BatchNorm(cc, 0.99, dtype=dtype))
             cin = cc
         self.mrcnn_mask_deconv = ConvTranspose(cc, cc, (2, 2, 2), dtype=dtype)
         self.mrcnn_mask = ZConv(cc, num_classes, (1, 1, 1), dtype=dtype)

@@ -8,11 +8,17 @@ composable stages m3d_torch/models/inference.py chains: ``extract_features``,
 and ``apply_mask_head``; and the monolithic graph's stages,
 ``classify_rois`` (fused ROIAlign + FC kernel) and ``mask_rois`` (padded
 ROIAlign kernel), which ``forward`` (JAX's ``__call__``) chains over every
-padded slot. ``forward_rpn`` stops after the proposals (RPN evaluation and the e2e
-head step's frozen trunk); ``forward_rpn_train`` is the RPN training forward
-(with gradients, no proposals) and ``forward_heads`` the heads on
-pre-aligned features. ``init_params`` seeds the weights no checkpoint
-covers, with JAX's distributions.
+padded slot. ``rpn_outputs`` stops after the proposals, with gradients
+into the RPN outputs and feature maps (the MRCNN train step);
+``forward_rpn`` is the same without gradients (RPN evaluation, target
+generation, the e2e head step's frozen trunk); ``forward_rpn_train`` is
+the RPN training forward (with gradients, no proposals) and
+``forward_heads`` the heads on pre-aligned features. BatchNorm runs on
+batch statistics only after ``bn_mode(True)`` on a model built with
+``train_bn`` (TRAIN_BN and a mode other than "inference", as JAX's
+``from_config``), never because of ``nn.Module.train()``.
+``init_params`` seeds the weights no checkpoint covers, with JAX's
+distributions.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import torch
 from torch import nn
 
 from m3d_torch.checkpoints import TRANSPOSED_CONVS
-from m3d_torch.models.backbone import ResNet3D
+from m3d_torch.models.backbone import BatchNorm, ResNet3D
 from m3d_torch.models.detection import refine_detections_batch
 from m3d_torch.models.fpn import FPN3D
 from m3d_torch.models.heads import ClassifierHead, MaskHead
@@ -53,8 +59,10 @@ class MaskRCNN(nn.Module):
                  detection_nms_threshold: float = 0.45,
                  detection_max_instances: int = 50,
                  detection_nms_xy_only: bool = False, head_max_rois: int = 0,
-                 in_channels: int = 1, dtype=torch.bfloat16):
+                 train_bn: bool = False, in_channels: int = 1,
+                 dtype=torch.bfloat16):
         super().__init__()
+        self.train_bn = train_bn
         self.pool_size = pool_size
         self.mask_pool_size = mask_pool_size
         self.image_depth = image_depth
@@ -120,6 +128,8 @@ class MaskRCNN(nn.Module):
             detection_nms_xy_only=bool(
                 getattr(config, "DETECTION_NMS_XY_ONLY", False)),
             head_max_rois=int(getattr(config, "HEAD_MAX_ROIS", 0) or 0),
+            # Inference always uses the running statistics.
+            train_bn=bool(config.TRAIN_BN) and mode != "inference",
             in_channels=int(config.IMAGE_CHANNEL_COUNT),
             dtype=torch.bfloat16
             if str(getattr(config, "COMPUTE_DTYPE", "bfloat16")) == "bfloat16"
@@ -127,6 +137,18 @@ class MaskRCNN(nn.Module):
         )
         kw.update(overrides)
         return cls(**kw).to(device)
+
+    def bn_mode(self, train: bool) -> "MaskRCNN":
+        """BatchNorm on batch statistics, updating the running ones, when
+        ``train`` and the model was built with ``train_bn`` (a training
+        step under TRAIN_BN); else on the running statistics (every
+        evaluation, proposal and targeting forward, as JAX's
+        ``clone(train_bn=False)``). Returns the model."""
+        on = bool(train) and self.train_bn
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.batch_stats = on
+        return self
 
     # Composable stages ------------------------------------------------
     def extract_features(self, image):
@@ -195,15 +217,16 @@ class MaskRCNN(nn.Module):
                                          self.mask_pool_size)
         return self.mask_head(aligned)
 
-    @torch.no_grad()
-    def forward_rpn(self, image, anchors):
+    def rpn_outputs(self, image, anchors):
         """RPN forward with proposal generation (JAX
         ``MaskRCNN.forward_rpn``). image [B, H, W, D, C] and anchors [A, 6]
-        are tensors on the model's device. Returns the RPN outputs, the
-        proposals and the feature maps."""
+        are tensors on the model's device. Returns the RPN outputs and the
+        feature maps with their graph, and the proposals made from the
+        detached outputs (JAX's ``stop_gradient`` on the proposals)."""
         feats = self.extract_features(image.float())
         logits, probs, deltas = self.rpn_forward(list(feats))
-        proposals, valid = self.propose(probs, deltas, anchors)
+        with torch.no_grad():
+            proposals, valid = self.propose(probs, deltas, anchors)
         return {
             "rpn_class_logits": logits,
             "rpn_probs": probs,
@@ -212,6 +235,11 @@ class MaskRCNN(nn.Module):
             "proposals_valid": valid,
             "feature_maps": feats,
         }
+
+    @torch.no_grad()
+    def forward_rpn(self, image, anchors):
+        """``rpn_outputs`` without gradients."""
+        return self.rpn_outputs(image, anchors)
 
     def forward_rpn_train(self, image):
         """RPN training forward (JAX ``forward_rpn_train``): trunk and RPN
@@ -223,8 +251,7 @@ class MaskRCNN(nn.Module):
 
     def forward_heads(self, rois_aligned, mask_aligned):
         """Classifier and mask heads on pre-aligned [B, T, p, p, p, C] and
-        [B, T, m, m, m, C] features (JAX ``forward_heads``). BatchNorm runs
-        on its running statistics (TRAIN_BN false)."""
+        [B, T, m, m, m, C] features (JAX ``forward_heads``)."""
         logits, probs, bbox = self.classifier(rois_aligned)
         return {"mrcnn_class_logits": logits, "mrcnn_probs": probs,
                 "mrcnn_bbox": bbox, "mrcnn_masks": self.mask_head(mask_aligned)}

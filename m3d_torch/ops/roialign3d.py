@@ -19,7 +19,9 @@ import torch
 
 from m3d_torch.image_meta import parse_image_meta
 from m3d_torch.ops.conv3d import conv3d_fc
-from m3d_torch.ops.roialign_compact import (flatten_pyramid, roialign_compact,
+from m3d_torch.ops.roialign_compact import (flatten_pyramid,
+                                            needs_feature_grad,
+                                            roialign_compact,
                                             roialign_padded, trilinear_gather)
 from m3d_torch.ops.roialign_fc import conv1_weight_fk, roialign_fc
 from m3d_torch.ops.roialign_slab import roialign_slab
@@ -297,6 +299,11 @@ def pyramid_roi_align_pallas(boxes, image_meta, feature_maps, pool_size,
     branch, each tier one slab-kernel launch over its (offset, count)
     range of the span-sorted rows. Returns [B, N, p, p, p, C] in the
     features' dtype.
+
+    No kernel has a backward (nor has JAX's entry: "use the XLA path for
+    training"), so a feature map that needs a gradient raises, on any
+    device, in the input checks of the wrapper that each branch calls;
+    ``pyramid_roi_align_auto`` sends those to the gather.
     """
     p = _pool_size(pool_size)
     fms = [fm.contiguous() for fm in feature_maps]
@@ -369,13 +376,17 @@ def fused_classifier_ok(pool_size, feature_maps) -> bool:
 
 
 def pyramid_roi_align_auto(boxes, image_meta, feature_maps, pool_size):
-    """Padded [B, N] ROIAlign dispatch: the padded kernel on a CUDA tensor,
-    the plain gather (``pyramid_roi_align``) on a CPU tensor. The TPU cost
-    model of the JAX dispatch is not carried over."""
-    if feature_maps[0].device.type == "cuda":
-        return pyramid_roi_align_pallas(boxes, image_meta, feature_maps,
-                                        pool_size)
-    return pyramid_roi_align(boxes, image_meta, feature_maps, pool_size)
+    """Padded [B, N] ROIAlign dispatch: the differentiable gather
+    (``pyramid_roi_align``) where a feature map needs a gradient (the
+    MRCNN train step with LEARNING_LAYERS "all" or "rpn", on any device),
+    else the padded kernel entry (``pyramid_roi_align_pallas``: the kernel
+    on a CUDA tensor, its plain version on a CPU tensor; the same function
+    as the gather). The TPU cost model of the JAX dispatch is not carried
+    over."""
+    if needs_feature_grad(feature_maps):
+        return pyramid_roi_align(boxes, image_meta, feature_maps, pool_size)
+    return pyramid_roi_align_pallas(boxes, image_meta, feature_maps,
+                                    pool_size)
 
 
 def pyramid_roi_align_fc(boxes, image_meta, feature_maps, pool_size,

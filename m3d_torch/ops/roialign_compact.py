@@ -16,7 +16,8 @@ does (m3d_torch.ops.roialign3d.pyramid_roi_align_compact prepares them):
   [B, H_l, W_l, D_l, C] channels-last.
 
 It returns [N, p, p, p, C] in the features' dtype, rows at or beyond
-``total`` exactly zero. On a CPU tensor it runs ``roialign_compact_plain``;
+``total`` exactly zero. The kernel has no backward: both entries raise,
+on any device, for a feature map that needs a gradient. On a CPU tensor it runs ``roialign_compact_plain``;
 on a CUDA tensor it launches the kernel or raises. The library is built
 with nvcc into m3d_torch/_build/ on first use (m3d_torch/ops/cuda_build.py)
 and rebuilt when the source changes.
@@ -123,8 +124,27 @@ KERNEL = LaunchCount()   # roialign_compact (TPU kernel _kernel_vmem_compact)
 PADDED = LaunchCount()   # roialign_padded (TPU kernel _kernel_vmem)
 
 
+def needs_feature_grad(feature_maps) -> bool:
+    """True where autograd would want a gradient of ``feature_maps``."""
+    return torch.is_grad_enabled() and any(fm.requires_grad
+                                           for fm in feature_maps)
+
+
+def refuse_feature_grad(feature_maps, what: str) -> None:
+    """Raise where a feature map needs a gradient: no kernel (and no TPU
+    kernel it replaces) defines a backward, so its result would come back
+    silently detached. Such callers take the differentiable gather
+    (``pyramid_roi_align``; ``pyramid_roi_align_auto`` picks it). The
+    wrappers' input checks are the one place that calls this."""
+    if needs_feature_grad(feature_maps):
+        raise RuntimeError(f"{what}: a feature map requires a gradient and "
+                           f"the kernel has no backward; use the gather "
+                           f"(pyramid_roi_align)")
+
+
 def _check(levels, batch_idx, total, pos, feature_maps):
     dev = pos.device
+    refuse_feature_grad(feature_maps, "compact ROIAlign")
     if len(feature_maps) != 4:
         raise ValueError(f"expected 4 pyramid levels, got {len(feature_maps)}")
     f0 = feature_maps[0]

@@ -29,7 +29,8 @@ import torch
 
 from m3d_torch.ops.cuda_build import (CudaLibrary, I, LaunchCount, P,
                                       on_card, stream_of)
-from m3d_torch.ops.roialign_compact import flatten_pyramid
+from m3d_torch.ops.roialign_compact import (flatten_pyramid,
+                                            refuse_feature_grad)
 
 LIB = CudaLibrary("roialign_slab", {
     "roialign_slab_launch": [P] * 4 + [I] * 12 + [P] * 8 + [I] * 6 + [P]})
@@ -39,8 +40,10 @@ KERNEL = LaunchCount()
 def check_slab_inputs(levels, batch_idx, origins, wy, wx, wz, feature_maps,
                       bounds):
     """Shared input checks of the slab-contract kernels; returns
-    (N, p, (sy, sx, sz), C)."""
+    (N, p, (sy, sx, sz), C). A feature map that needs a gradient is
+    refused: neither kernel has a backward."""
     dev = wy.device
+    refuse_feature_grad(feature_maps, "slab ROIAlign")
     if len(feature_maps) != 4:
         raise ValueError(f"expected 4 pyramid levels, got {len(feature_maps)}")
     f0 = feature_maps[0]

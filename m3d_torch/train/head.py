@@ -1,17 +1,25 @@
-"""End-to-end head training (port of the e2e mode of ``HeadTrainer`` in
-m3d/train/head.py; head-only training from TARGET_GENERATION's artifacts is
-not ported yet: ROADMAP.md §1).
+"""Head training (port of ``HeadTrainer`` in m3d/train/head.py): head-only
+from TARGET_GENERATION's artifacts, and end to end.
 
-MODE "training_head_e2e": the frozen backbone, FPN and RPN make live
+Head-only (any MODE but "training_head_e2e"): ``HeadGenerator`` batches of
+the pre-aligned features, a target-quality preflight over the first
+batches that raises on degenerate targets, and the heads trained on them
+(BatchNorm on batch statistics under TRAIN_BN). As in JAX the optimiser
+covers every leaf: the trunk gets no gradient, but weight decay and
+momentum move its decayed kernels. Up to 4 validation batches an epoch.
+
+e2e (MODE "training_head_e2e"): the frozen backbone, FPN and RPN make live
 proposals; ``detection_targets_batch`` samples them into fixed-T targets;
-both ROIAligns run on the detached feature maps (on the card through the
-padded kernel, ``pyramid_roi_align_auto`` -> ``roialign_padded``; on the
-CPU through the plain gather); the classifier and mask heads train on
-them. Only the ``mrcnn_*`` leaves get updates and MaxNorm constraints
-(``_is_frozen_for_e2e``). Losses are weighted by LOSS_WEIGHTS. The
-validation step draws its targets with a fixed seed (SEED + 99), so each
-epoch's validation loss compares the same ROI draws; it gates
-``BestAndLatest`` (minimise), ReduceLROnPlateau and EarlyStopping.
+both ROIAligns run on the detached feature maps through
+``pyramid_roi_align_auto`` (the padded kernel on the card); the classifier
+and mask heads train on them. Only the ``mrcnn_*`` leaves get updates and
+MaxNorm constraints (``_is_frozen_for_e2e``). TRAIN_BN is refused, as JAX
+refuses it. Up to 2 validation batches an epoch, their targets drawn with
+a fixed seed (SEED + 99).
+
+Losses are weighted by LOSS_WEIGHTS; the validation loss (or the training
+loss without a validation split) gates ``BestAndLatest`` (minimise),
+ReduceLROnPlateau and EarlyStopping.
 """
 
 from __future__ import annotations
@@ -27,9 +35,9 @@ from m3d_torch.checkpoints import (BestAndLatest, load_params,
                                    params_from_jax, params_to_jax,
                                    restore_by_name)
 from m3d_torch.config import unported_training
-from m3d_torch.data.datasets import ToyDataset
-from m3d_torch.data.generators import (RPNGenerator, prefetch_to_device,
-                                       to_device)
+from m3d_torch.data.datasets import ToyDataset, ToyHeadDataset
+from m3d_torch.data.generators import (HeadGenerator, RPNGenerator,
+                                       prefetch_to_device, to_device)
 from m3d_torch.models import losses as L
 from m3d_torch.models.detection_targets import detection_targets_batch
 from m3d_torch.models.mask_rcnn import MaskRCNN, init_params
@@ -41,7 +49,8 @@ from m3d_torch.train.profiling import EpochProfiler, StepClock
 from m3d_torch.train.rpn import read_metrics
 from m3d_torch.train.telemetry import Telemetry
 
-VAL_STEPS = 2   # validation batches per epoch at most, as JAX's e2e runs
+E2E_VAL_STEPS = 2        # validation batches per epoch at most, as JAX's
+HEAD_ONLY_VAL_STEPS = 4  # e2e and head-only runs take
 
 
 def _is_frozen_for_e2e(path: str) -> bool:
@@ -101,6 +110,95 @@ class HeadTrainer:
                 print(f"[HeadTrainer] restored {path}: {stats}")
         return self.model
 
+    # Head-only ---------------------------------------------------------
+    def preflight_targets(self, gen, num_batches: int = 10):
+        """Raise on degenerate targets in the first ``num_batches`` batches
+        (core/models.py:4730-4821): no positive ROI at all, or positive
+        target masks with a mean coverage below 1e-4."""
+        it = iter(gen)
+        pos_fracs, mask_covs = [], []
+        for _ in range(num_batches):
+            batch = next(it)
+            pos = batch["target_class_ids"] > 0
+            pos_fracs.append(float(pos.mean()))
+            if pos.any():
+                mask_covs.append(float(batch["target_mask"][pos].mean()))
+        if np.sum(pos_fracs) == 0:
+            raise RuntimeError(
+                "[preflight] no positive ROIs in sampled batches — target "
+                "generation produced degenerate data")
+        if mask_covs and float(np.mean(mask_covs)) < 1e-4:
+            raise RuntimeError(
+                "[preflight] positive target masks are empty — mask cropping "
+                "is broken in the target artifacts")
+        print(f"[preflight] pos_frac={np.mean(pos_fracs):.3f} "
+              f"mask_cov={np.mean(mask_covs) if mask_covs else 0:.3f}")
+
+    def _head_only_outputs(self, batch, train: bool):
+        """The heads on the batch's pre-aligned features. Returns (loss,
+        metrics)."""
+        model = self.model.bn_mode(train)
+        out = model.forward_heads(batch["rois_aligned"],
+                                  batch["mask_aligned"])
+        active = torch.ones((batch["rois_aligned"].shape[0],
+                             int(self.config.NUM_CLASSES)),
+                            device=self.device)
+        return head_losses(self.config, out, batch, active)
+
+    def make_head_only_step(self, opt):
+        """batch -> metrics (floats): one head-only step, the optimiser
+        over every leaf, then MaxNorm."""
+        params = dict(self.model.named_parameters())
+
+        def train_step(batch):
+            for p in params.values():
+                p.grad = None
+            loss, metrics = self._head_only_outputs(batch, True)
+            loss.backward()
+            opt.step()
+            apply_constraints(params)
+            return read_metrics(metrics)
+
+        return train_step
+
+    def _make_head_eval(self):
+        """Validation forward of the head-only step, BatchNorm on its
+        running statistics."""
+        @torch.no_grad()
+        def eval_step(batch):
+            return read_metrics(self._head_only_outputs(batch, False)[1])
+
+        return eval_step
+
+    def train_head_only(self):
+        """Head-only training on DATA_DIR's target artifacts. Returns
+        (model, history of epoch metrics)."""
+        cfg = self.config
+        why = unported_training("HEAD_TRAINING", cfg)
+        if why:
+            raise NotImplementedError(why)
+        train_ds = ToyHeadDataset()
+        train_ds.load_dataset(cfg.DATA_DIR, is_train=True)
+        train_ds.prepare()
+        test_ds = ToyHeadDataset()
+        test_ds.load_dataset(cfg.DATA_DIR, is_train=False)
+        test_ds.prepare()
+        gen = HeadGenerator(train_ds, cfg, seed=int(getattr(cfg, "SEED", 0)))
+        if len(test_ds.image_info) >= int(cfg.BATCH_SIZE):
+            val_gen = HeadGenerator(test_ds, cfg, shuffle=False)
+        else:   # the split cannot fill one batch: gate on the train loss
+            print(f"[HEAD] test split has {len(test_ds.image_info)} images "
+                  f"< BATCH_SIZE {cfg.BATCH_SIZE}; gating on train loss")
+            val_gen = None
+        self.preflight_targets(gen, num_batches=min(10, len(gen)))
+        model = self.init_variables()
+        # No freeze predicate, as in JAX: weight decay reaches every leaf.
+        opt = Optimizer(cfg, dict(model.named_parameters()))
+        return train_loop(self, model, gen, val_gen, opt,
+                          self.make_head_only_step(opt),
+                          self._make_head_eval(), HEAD_ONLY_VAL_STEPS, "head")
+
+    # e2e ---------------------------------------------------------------
     def prepare_e2e(self):
         """Weights (RPN_WEIGHTS required), the trunk frozen (no gradients)
         and the optimiser over the mrcnn_* leaves. Returns the optimiser."""
@@ -168,12 +266,19 @@ class HeadTrainer:
         return eval_step
 
     def train_e2e(self):
-        """One pass of the generator per epoch, up to VAL_STEPS validation
-        batches. Returns (model, history of epoch metrics)."""
+        """One pass of the generator per epoch, up to E2E_VAL_STEPS
+        validation batches. Returns (model, history of epoch metrics)."""
         cfg = self.config
         why = unported_training("HEAD_TRAINING", cfg)
         if why:
             raise NotImplementedError(why)
+        if bool(getattr(cfg, "TRAIN_BN", False)):
+            raise ValueError(
+                "TRAIN_BN=true is not supported in e2e head training: the "
+                "trunk is frozen and the reference explicitly kills BN "
+                "updates for frozen layers (core/models.py:4666-4668). Use "
+                "TRAIN_BN with RPN_TRAINING / HEAD_TRAINING (MODE training) "
+                "/ MRCNN_TRAINING instead.")
         train_ds = ToyDataset()
         train_ds.load_dataset(cfg.DATA_DIR, is_train=True,
                               class_names=tuple(cfg.CLASS_NAMES))
@@ -199,55 +304,65 @@ class HeadTrainer:
         opt = self.prepare_e2e()
         step_fn = self.make_e2e_step(opt, torch.Generator(
             self.device).manual_seed(int(getattr(cfg, "SEED", 0)) + 1))
-        return self._train_loop(gen, val_gen, opt, step_fn, eval_fn)
+        return train_loop(self, self.model, gen, val_gen, opt, step_fn,
+                          eval_fn, E2E_VAL_STEPS, "head")
 
-    def _train_loop(self, gen, val_gen, opt, step_fn, eval_fn):
-        cfg, model = self.config, self.model
-        save_dir = cfg.WEIGHT_DIR or os.path.join(cfg.OUTPUT_DIR, "weights")
-        ckpt = BestAndLatest(save_dir, mode="min")
-        reduce_lr = ReduceLROnPlateau(mode="min")
-        early = EarlyStopping(patience=15, mode="min")
-        it = prefetch_to_device(iter(gen), self.device,
-                                int(getattr(cfg, "PREFETCH_BUFFERS", 2)))
-        profiler = EpochProfiler(cfg)
-        history = []
-        lr = get_learning_rate(opt)
-        for epoch in range(int(cfg.FROM_EPOCH), int(cfg.EPOCHS)):
-            t0 = time.time()
-            profiler.maybe_start(epoch)
-            agg: dict[str, list] = {}
-            for _ in range(len(gen)):
-                metrics = self.clock.run(step_fn, self.clock.take(it))
-                for k, v in metrics.items():
-                    agg.setdefault(k, []).append(v)
-            profiler.maybe_stop(epoch)
-            epoch_metrics = {k: float(np.mean(v)) for k, v in agg.items()}
 
-            if val_gen is not None and eval_fn is not None:
-                vit = iter(val_gen.reset())
-                vals: dict[str, list] = {}
-                for _ in range(min(VAL_STEPS, len(val_gen))):
-                    batch = to_device(next(vit), self.device)
-                    for k, v in eval_fn(batch).items():
-                        vals.setdefault(f"val_{k}", []).append(v)
-                epoch_metrics.update(
-                    {k: float(np.mean(v)) for k, v in vals.items()})
+def train_loop(trainer, model, gen, val_gen, opt, step_fn, eval_fn,
+               val_steps: int, kind: str):
+    """The epoch loop of head and MRCNN training: one pass of ``gen`` per
+    epoch through ``step_fn`` (timed by ``trainer.clock``), up to
+    ``val_steps`` batches of ``val_gen`` (reset every epoch) through
+    ``eval_fn``; the validation loss, or the training loss without
+    ``val_gen``, gates BestAndLatest (minimise; metadata ``kind``),
+    ReduceLROnPlateau and EarlyStopping(15); a telemetry snapshot per
+    epoch. Returns (model, history of epoch metrics)."""
+    cfg, tag = trainer.config, kind.upper()
+    save_dir = cfg.WEIGHT_DIR or os.path.join(cfg.OUTPUT_DIR, "weights")
+    ckpt = BestAndLatest(save_dir, mode="min")
+    reduce_lr = ReduceLROnPlateau(mode="min")
+    early = EarlyStopping(patience=15, mode="min")
+    it = prefetch_to_device(iter(gen), trainer.device,
+                            int(getattr(cfg, "PREFETCH_BUFFERS", 2)))
+    profiler = EpochProfiler(cfg)
+    history = []
+    lr = get_learning_rate(opt)
+    for epoch in range(int(cfg.FROM_EPOCH), int(cfg.EPOCHS)):
+        t0 = time.time()
+        profiler.maybe_start(epoch)
+        agg: dict[str, list] = {}
+        for _ in range(len(gen)):
+            metrics = trainer.clock.run(step_fn, trainer.clock.take(it))
+            for k, v in metrics.items():
+                agg.setdefault(k, []).append(v)
+        profiler.maybe_stop(epoch)
+        epoch_metrics = {k: float(np.mean(v)) for k, v in agg.items()}
 
-            gate = epoch_metrics.get("val_loss", epoch_metrics["loss"])
-            ckpt.update(epoch, params_to_jax(model.state_dict()), gate,
-                        metadata={"kind": "head", "epoch": epoch})
-            new_lr = reduce_lr.update(gate, lr)
-            if new_lr != lr:
-                lr = new_lr
-                set_learning_rate(opt, lr)
-            epoch_metrics["lr"] = lr
-            self.telemetry.snapshot_and_reset(epoch, save_dir,
-                                              extra=epoch_metrics)
-            print(f"[HEAD][epoch {epoch}] loss={epoch_metrics['loss']:.4f} "
-                  f"gate={gate:.4f} dice={epoch_metrics.get('mask_dice', 0):.3f}"
-                  f" lr={lr:.2e} ({time.time() - t0:.1f}s)")
-            history.append(epoch_metrics)
-            if early.update(gate):
-                print("[HEAD] early stopping")
-                break
-        return model, history
+        if val_gen is not None and eval_fn is not None:
+            vit = iter(val_gen.reset())
+            vals: dict[str, list] = {}
+            for _ in range(min(val_steps, len(val_gen))):
+                batch = to_device(next(vit), trainer.device)
+                for k, v in eval_fn(batch).items():
+                    vals.setdefault(f"val_{k}", []).append(v)
+            epoch_metrics.update(
+                {k: float(np.mean(v)) for k, v in vals.items()})
+
+        gate = epoch_metrics.get("val_loss", epoch_metrics["loss"])
+        ckpt.update(epoch, params_to_jax(model.state_dict()), gate,
+                    metadata={"kind": kind, "epoch": epoch})
+        new_lr = reduce_lr.update(gate, lr)
+        if new_lr != lr:
+            lr = new_lr
+            set_learning_rate(opt, lr)
+        epoch_metrics["lr"] = lr
+        trainer.telemetry.snapshot_and_reset(epoch, save_dir,
+                                             extra=epoch_metrics)
+        print(f"[{tag}][epoch {epoch}] loss={epoch_metrics['loss']:.4f} "
+              f"gate={gate:.4f} dice={epoch_metrics.get('mask_dice', 0):.3f}"
+              f" lr={lr:.2e} ({time.time() - t0:.1f}s)")
+        history.append(epoch_metrics)
+        if early.update(gate):
+            print(f"[{tag}] early stopping")
+            break
+    return model, history

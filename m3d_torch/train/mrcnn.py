@@ -1,15 +1,29 @@
-"""Mask R-CNN evaluation task (port of ``MrcnnTrainer.__init__``,
-``init_variables``, ``evaluate``, ``_evaluate_one``, ``_write_overlay`` and
-``_summarize`` in m3d/train/mrcnn.py). Training is not ported yet
-(ROADMAP.md §1).
+"""Mask R-CNN training and evaluation tasks (port of ``MrcnnTrainer`` in
+m3d/train/mrcnn.py).
 
-``evaluate``: per-image adaptive inference on the device -> confidence /
-size / host-NMS filter cascade -> mask unmolding -> pixelwise,
-instance-Dice and detection metrics -> label TIFF, boxes CSV and overlay PNG
-artifacts -> summary with a confidence histogram and a recommended threshold
-(core/models.py:6338-7196). ``times`` holds each evaluated image's seconds
-by stage: load, inference (CUDA events on the card), unmold, metrics and
-artifacts.
+``train`` (MRCNN_TRAINING): the whole graph trains on an 80/20 split of
+the train split (permutation from RandomState(SEED)). A step: the RPN with
+gradients into the trunk (BatchNorm on batch statistics under TRAIN_BN),
+its losses, targets sampled from the detached proposals (uniforms from a
+``torch.Generator`` seeded SEED + 7), both ROIAligns through
+``pyramid_roi_align_auto``, the heads and their losses, all weighted by
+LOSS_WEIGHTS; the optimiser skips the leaves LEARNING_LAYERS freezes
+("head": all but mrcnn_*; "rpn": the mrcnn_* heads; "all": none), and
+MaxNorm follows. Frozen leaves take no gradient, so with "head" no feature
+map needs one and the ROIAligns run on the padded kernel on the card; with
+"all" or "rpn" the head loss reaches the FPN and backbone through the
+differentiable gather, as JAX's XLA gather. The validation step (up to 4
+batches, no augmentation, the same batches every epoch) runs BatchNorm on
+running statistics and draws its targets from SEED + 99 on every call;
+its loss gates ``BestAndLatest``, ReduceLROnPlateau and EarlyStopping.
+
+``evaluate`` (MRCNN_EVALUATION): per-image adaptive inference on the
+device -> confidence / size / host-NMS filter cascade -> mask unmolding ->
+pixelwise, instance-Dice and detection metrics -> label TIFF, boxes CSV
+and overlay PNG artifacts -> summary with a confidence histogram and a
+recommended threshold (core/models.py:6338-7196). ``times`` holds each
+evaluated image's seconds by stage: load, inference (CUDA events on the
+card), unmold, metrics and artifacts.
 """
 
 from __future__ import annotations
@@ -24,17 +38,47 @@ import traceback
 import numpy as np
 import torch
 
+from m3d_torch.anchors import normalized_pyramid_anchors
 from m3d_torch.checkpoints import (autoconfigure_heads, load_params,
                                    params_from_jax, restore_by_name)
-from m3d_torch.config import resolve_auto_confidence
+from m3d_torch.config import resolve_auto_confidence, unported_training
 from m3d_torch.data.datasets import ToyDataset
 from m3d_torch.data.generators import MrcnnGenerator
+from m3d_torch.models import losses as L
+from m3d_torch.models.detection_targets import detection_targets_batch
 from m3d_torch.models.inference import adaptive_inference, chunks_from_config
 from m3d_torch.models.mask_rcnn import MaskRCNN, init_params
+from m3d_torch.ops.roialign3d import pyramid_roi_align_auto
+from m3d_torch.train.head import head_losses, train_loop
+from m3d_torch.train.optim import Optimizer, apply_constraints
+from m3d_torch.train.profiling import StepClock
+from m3d_torch.train.rpn import read_metrics
+from m3d_torch.train.telemetry import Telemetry
 from m3d_torch.utils.metrics import compute_overlaps_masks
 from m3d_torch.utils.tiffio import imwrite_volume
 from m3d_torch.utils.unmold import (instances_to_label_volume,
                                     postprocess_detections)
+
+
+VAL_STEPS = 4   # validation batches per epoch at most, as in JAX
+
+
+def _freeze_predicate(learning_layers: str):
+    """LEARNING_LAYERS -> predicate on a leaf path ("/" or "."), True for a
+    frozen leaf; None trains everything."""
+    ll = str(learning_layers).lower()
+
+    def head(path):
+        return any(seg.startswith("mrcnn_")
+                   for seg in path.replace("/", ".").split("."))
+
+    if ll == "all":
+        return None
+    if ll == "head":    # train the heads only
+        return lambda p: not head(p)
+    if ll == "rpn":     # train backbone, FPN and RPN only
+        return head
+    raise ValueError(f"LEARNING_LAYERS must be rpn|head|all, got {ll}")
 
 
 class MrcnnTrainer:
@@ -50,6 +94,12 @@ class MrcnnTrainer:
         # "auto" applies the last evaluation's recommended threshold
         # (reference recommendation machinery, core/models.py:7144-7164).
         resolve_auto_confidence(config)
+        self.telemetry = Telemetry(config)
+        self.anchors = normalized_pyramid_anchors(
+            config, voxel_z_over_y=float(getattr(config, "VOXEL_Z_OVER_Y", 1.0))
+        )
+        self._anchors_dev = torch.as_tensor(self.anchors, device=self.device)
+        self.clock = StepClock(self.device)
         self.times: list[dict] = []
         self._now: dict = {}
 
@@ -68,6 +118,131 @@ class MrcnnTrainer:
                 print(f"[MrcnnTrainer] restored {path}: {stats}")
         return model
 
+    # ------------------------------------------------------------------
+    # Training
+    # ------------------------------------------------------------------
+    def _outputs(self, model, batch, generator, train: bool):
+        """The full graph's loss on a batch: RPN losses, targets from the
+        detached proposals, both ROIAligns, head losses. Returns (loss,
+        metrics)."""
+        cfg = self.config
+        lw = cfg.LOSS_WEIGHTS
+        model.bn_mode(train)
+        rpn_out = model.rpn_outputs(batch["image"], self._anchors_dev)
+        lrc, mrc = L.rpn_class_loss(batch["rpn_match"],
+                                    rpn_out["rpn_class_logits"])
+        lrb, mrb = L.rpn_bbox_loss(batch["rpn_bbox"], batch["rpn_match"],
+                                   rpn_out["rpn_bbox"])
+        targets = detection_targets_batch(
+            rpn_out["proposals"], batch["gt_class_ids"], batch["gt_boxes"],
+            batch["gt_masks"], cfg.BBOX_STD_DEV,
+            int(cfg.TRAIN_ROIS_PER_IMAGE), float(cfg.ROI_POSITIVE_RATIO),
+            float(cfg.RPN_POSITIVE_IOU), float(cfg.RPN_NEGATIVE_IOU),
+            tuple(int(v) for v in cfg.MASK_SHAPE),
+            use_mini_mask=bool(cfg.USE_MINI_MASK), generator=generator)
+        feats = list(rpn_out["feature_maps"][:4])
+        meta = batch["image_meta"].float()
+        ra, ma = (pyramid_roi_align_auto(targets["rois"], meta, feats, int(q))
+                  for q in (cfg.POOL_SIZE, cfg.MASK_POOL_SIZE))
+        out = model.forward_heads(ra, ma)
+        head_batch = {"target_class_ids": targets["class_ids"],
+                      "target_bbox": targets["deltas"],
+                      "target_mask": targets["masks"]}
+        active = torch.ones((batch["image"].shape[0], int(cfg.NUM_CLASSES)),
+                            device=self.device)
+        head_loss, metrics = head_losses(cfg, out, head_batch, active)
+        loss = (float(lw.get("rpn_class_loss", 1.0)) * lrc
+                + float(lw.get("rpn_bbox_loss", 1.0)) * lrb + head_loss)
+        metrics.update(mrc)
+        metrics.update(mrb)
+        metrics["loss"] = loss
+        return loss, metrics
+
+    def prepare_train(self, model):
+        """Weights, the frozen leaves (LEARNING_LAYERS) without gradients,
+        and the optimiser over the others. Returns the optimiser."""
+        frozen = _freeze_predicate(self.config.LEARNING_LAYERS)
+        self.init_variables(model)
+        for name, p in model.named_parameters():
+            p.requires_grad_(frozen is None or not frozen(name))
+        return Optimizer(self.config, dict(model.named_parameters()),
+                         freeze_predicate=frozen)
+
+    def make_train_step(self, model, opt, generator):
+        """batch -> metrics (floats): one MRCNN_TRAINING step."""
+        frozen = _freeze_predicate(self.config.LEARNING_LAYERS)
+        params = dict(model.named_parameters())
+
+        def train_step(batch):
+            for p in params.values():
+                p.grad = None
+            loss, metrics = self._outputs(model, batch, generator, True)
+            loss.backward()
+            opt.step()
+            apply_constraints(params, frozen_predicate=frozen)
+            return read_metrics(metrics)
+
+        return train_step
+
+    def make_eval_step(self, model):
+        """Validation: the train step's loss without gradients, BatchNorm
+        on running statistics, targets drawn from SEED + 99 on every
+        call (the same ROI draws every epoch)."""
+        seed = int(getattr(self.config, "SEED", 0)) + 99
+
+        @torch.no_grad()
+        def eval_step(batch):
+            gen = torch.Generator(self.device).manual_seed(seed)
+            return read_metrics(self._outputs(model, batch, gen, False)[1])
+
+        return eval_step
+
+    def train(self):
+        """One pass of the generator per epoch, up to VAL_STEPS validation
+        batches. Returns (model, history of epoch metrics)."""
+        cfg = self.config
+        why = unported_training("MRCNN_TRAINING", cfg)
+        if why:
+            raise NotImplementedError(why)
+        model = MaskRCNN.from_config(cfg, mode="training",
+                                     device=self.device).eval()
+        self.model = model
+        full = ToyDataset()
+        full.load_dataset(cfg.DATA_DIR, is_train=True,
+                          class_names=tuple(cfg.CLASS_NAMES))
+        full.prepare()
+        full = full.filter_positive()
+        # 80/20 split (the reference slices it the other way round,
+        # core/models.py:5815; JAX implements the documented 80/20).
+        ids = np.random.RandomState(int(getattr(cfg, "SEED", 0))).permutation(
+            len(full.image_info))
+        split = max(1, int(0.2 * len(ids)))
+        train_ds, val_ds = full.subset(ids[split:]), full.subset(ids[:split])
+        print(f"[MrcnnTrainer] split train={len(train_ds.image_info)} "
+              f"val={len(val_ds.image_info)}")
+        gen = MrcnnGenerator(train_ds, cfg, mode="training",
+                             seed=int(getattr(cfg, "SEED", 0)),
+                             telemetry=self.telemetry)
+        val_gen = None
+        if len(val_ds.image_info) >= int(cfg.BATCH_SIZE):
+            val_gen = MrcnnGenerator(val_ds, cfg, mode="training",
+                                     shuffle=False, augment=False,
+                                     seed=int(getattr(cfg, "SEED", 0)) + 41)
+        else:
+            print(f"[MrcnnTrainer] val split has {len(val_ds.image_info)} "
+                  f"images < BATCH_SIZE {cfg.BATCH_SIZE}; gating on train "
+                  f"loss")
+        eval_fn = self.make_eval_step(model)
+        opt = self.prepare_train(model)
+        step_fn = self.make_train_step(model, opt, torch.Generator(
+            self.device).manual_seed(int(getattr(cfg, "SEED", 0)) + 7))
+
+        return train_loop(self, model, gen, val_gen, opt, step_fn, eval_fn,
+                          VAL_STEPS, "mrcnn")
+
+    # ------------------------------------------------------------------
+    # Evaluation (inference + metrics + artifacts)
+    # ------------------------------------------------------------------
     @contextlib.contextmanager
     def _stage(self, name):
         t = time.perf_counter()
@@ -100,9 +275,6 @@ class MrcnnTrainer:
             self._now["inference"] = time.perf_counter() - t
         return host
 
-    # ------------------------------------------------------------------
-    # Evaluation (inference + metrics + artifacts)
-    # ------------------------------------------------------------------
     def evaluate(self, max_images=None):
         """Evaluate the test split (at most ``max_images`` images). Returns
         (summary, per-image results)."""

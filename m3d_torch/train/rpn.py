@@ -1,9 +1,10 @@
-"""RPN training and evaluation (port of ``RPNTrainer`` in m3d/train/rpn.py,
-without head-target generation, which is not ported yet: ROADMAP.md §1).
+"""RPN training, evaluation and head-target generation (port of
+``RPNTrainer`` in m3d/train/rpn.py).
 
 The model is built as JAX builds it, with ``mode="training"`` (so
-POST_NMS_ROIS_TRAINING sets the proposal count). BatchNorm runs on its
-running statistics (TRAIN_BN false; true is refused).
+POST_NMS_ROIS_TRAINING sets the proposal count). BatchNorm runs on batch
+statistics in the train step under TRAIN_BN, and on its running statistics
+everywhere else.
 
 ``train``: loss = 1.0 rpn_class + 1.5 rpn_bbox (the reference's fixed
 weights, overridable by LOSS_WEIGHTS' ``rpn_*_loss_override``), the
@@ -11,10 +12,19 @@ optimiser over every parameter (the heads' only through weight decay, as
 in JAX), then per epoch ``rpn_evaluation`` on the test split, which gates
 ``BestAndLatest`` (maximise the summed detection score), ReduceLROnPlateau,
 EarlyStopping and a telemetry snapshot.
+
+``head_target_generation`` (TARGET_GENERATION): per image of each split,
+the RPN's proposals (no gradient), ``detection_targets_batch`` with
+uniforms from a ``torch.Generator`` seeded from SEED, and both ROIAligns
+through ``pyramid_roi_align_auto`` (the padded kernel on the card); the
+artifacts go to ``head_targets/{train,test}/NNNNNN_{key}.npz`` with JAX's
+containers and the manifests to ``head_targets/datasets/{split}.csv``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import csv
 import os
 import time
 
@@ -27,9 +37,12 @@ from m3d_torch.checkpoints import (BestAndLatest, load_params,
                                    restore_by_name)
 from m3d_torch.config import unported_training
 from m3d_torch.data.datasets import ToyDataset
-from m3d_torch.data.generators import RPNGenerator, prefetch_to_device
+from m3d_torch.data.generators import (RPNGenerator, prefetch_to_device,
+                                       to_device)
 from m3d_torch.models import losses as L
+from m3d_torch.models.detection_targets import detection_targets_batch
 from m3d_torch.models.mask_rcnn import MaskRCNN, init_params
+from m3d_torch.ops.roialign3d import pyramid_roi_align_auto
 from m3d_torch.train.optim import (EarlyStopping, ReduceLROnPlateau,
                                    Optimizer, get_learning_rate,
                                    set_learning_rate)
@@ -62,6 +75,7 @@ class RPNTrainer:
         )
         self.telemetry = Telemetry(config)
         self.clock = StepClock(self.device)
+        self.target_times: list[dict] = []
 
     def prepare_datasets(self):
         cfg = self.config
@@ -89,8 +103,9 @@ class RPNTrainer:
         return self.model
 
     def make_train_step(self, opt):
-        """batch (tensors on the device) -> metrics (floats): one forward,
-        backward and optimiser step."""
+        """batch (tensors on the device) -> metrics (floats): one forward
+        (BatchNorm on batch statistics under TRAIN_BN, which updates the
+        running ones), backward and optimiser step."""
         model, lw = self.model, self.config.LOSS_WEIGHTS
         w_class = float(lw.get("rpn_class_loss_override", 1.0))
         w_bbox = float(lw.get("rpn_bbox_loss_override", 1.5))
@@ -98,6 +113,7 @@ class RPNTrainer:
         def train_step(batch):
             for p in model.parameters():
                 p.grad = None
+            model.bn_mode(True)
             out = model.forward_rpn_train(batch["image"])
             lc, mc = L.rpn_class_loss(batch["rpn_match"],
                                       out["rpn_class_logits"])
@@ -117,6 +133,7 @@ class RPNTrainer:
         anchors = torch.as_tensor(self.anchors, device=self.device)
 
         def predict(image):
+            model.bn_mode(False)
             out = model.forward_rpn(
                 torch.as_tensor(image, device=self.device), anchors)
             return (out["proposals"][0].float().cpu().numpy(),
@@ -185,3 +202,140 @@ class RPNTrainer:
                 print("[RPN] early stopping")
                 break
         return model, history
+
+    # ------------------------------------------------------------------
+    @contextlib.contextmanager
+    def _stage(self, times: dict, name: str):
+        """Add the seconds of the block to ``times[name]``; on a card the
+        device work queued in it is waited for."""
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            times[name] = times.get(name, 0.0) + time.perf_counter() - t
+
+    def head_target_generation(self, inject_gt=False):
+        """Generate and save head-training targets (core/models.py:
+        3530-3796). Returns (out_root, {split: manifest path}).
+
+        The output root is DATA_DIR/head_targets when MODE is "targeting",
+        else OUTPUT_DIR/head_targets. TARGET_RATIO < 1 targets only the
+        leading fraction of each split; images with fewer than
+        MIN_POSITIVE_TARGETS positives are skipped. The target sampler
+        draws from a ``torch.Generator`` on the device seeded from SEED.
+        ``inject_gt=True`` puts the GT boxes in front of the proposals
+        (keeping their count), as JAX's option does. ``target_times`` gets
+        one dict per targeted image: seconds by stage (forward, targets,
+        roialign, write) and the bytes written."""
+        cfg = self.config
+        model = self.init_variables()
+        model.bn_mode(False)
+        anchors = torch.as_tensor(self.anchors, device=self.device)
+        mask_shape = tuple(int(v) for v in cfg.MASK_SHAPE)
+        generator = torch.Generator(self.device).manual_seed(
+            int(getattr(cfg, "SEED", 0)))
+        out_dir = cfg.DATA_DIR if cfg.MODE == "targeting" else cfg.OUTPUT_DIR
+        out_root = os.path.join(out_dir, "head_targets")
+        manifests = {}
+        self.target_times = []
+        for split, is_train in (("train", True), ("test", False)):
+            ds = ToyDataset()
+            ds.load_dataset(cfg.DATA_DIR, is_train=is_train,
+                            class_names=tuple(cfg.CLASS_NAMES))
+            ds.prepare()
+            ds = ds.filter_positive()
+            gen = RPNGenerator(ds, cfg, mode="targeting", shuffle=False)
+            n = len(ds.image_info)
+            ratio = float(getattr(cfg, "TARGET_RATIO", 1.0))
+            if ratio < 1.0:
+                total = n
+                n = max(1, int(round(ratio * n)))
+                print(f"[targeting] {split}: targeting {n}/{total} images "
+                      f"(TARGET_RATIO={ratio}); {total - n} skipped")
+            split_dir = os.path.join(out_root, split)
+            os.makedirs(split_dir, exist_ok=True)
+            rows = []
+            for image_id in range(n):
+                times: dict = {}
+                batch = to_device(gen.get_batch([image_id]), self.device)
+                with torch.no_grad():
+                    with self._stage(times, "forward"):
+                        out = model.forward_rpn(batch["image"], anchors)
+                        proposals = out["proposals"]
+                        if inject_gt:
+                            proposals = torch.cat(
+                                [batch["gt_boxes"].float(), proposals],
+                                dim=1)[:, :proposals.shape[1]]
+                    with self._stage(times, "targets"):
+                        targets = detection_targets_batch(
+                            proposals, batch["gt_class_ids"],
+                            batch["gt_boxes"], batch["gt_masks"],
+                            cfg.BBOX_STD_DEV, int(cfg.TRAIN_ROIS_PER_IMAGE),
+                            float(cfg.ROI_POSITIVE_RATIO),
+                            float(cfg.RPN_POSITIVE_IOU),
+                            float(cfg.RPN_NEGATIVE_IOU), mask_shape,
+                            use_mini_mask=bool(cfg.USE_MINI_MASK),
+                            generator=generator)
+                    with self._stage(times, "roialign"):
+                        feats = list(out["feature_maps"][:4])
+                        meta = batch["image_meta"].float()
+                        ra, ma = (pyramid_roi_align_auto(
+                            targets["rois"], meta, feats, int(q))
+                            for q in (cfg.POOL_SIZE, cfg.MASK_POOL_SIZE))
+                tci = targets["class_ids"][0].cpu().numpy()
+                n_pos = int((tci > 0).sum())
+                if n_pos < int(cfg.MIN_POSITIVE_TARGETS):
+                    print(f"[targeting][{split}#{image_id}] skipped "
+                          f"({n_pos} positives)")
+                    continue
+                with self._stage(times, "write"):
+                    paths = _save_target_npz(
+                        split_dir, str(image_id).zfill(6),
+                        rois=targets["rois"][0].float().cpu().numpy(),
+                        rois_aligned=ra[0].to(torch.float16).cpu().numpy(),
+                        mask_aligned=ma[0].to(torch.float16).cpu().numpy(),
+                        target_class_ids=tci.astype(np.int32),
+                        target_bbox=targets["deltas"][0].float().cpu()
+                        .numpy(),
+                        target_mask=targets["masks"][0].float().cpu()
+                        .numpy())
+                times["bytes"] = sum(os.path.getsize(p)
+                                     for p in paths.values())
+                self.target_times.append(times)
+                rows.append(paths)
+            man_dir = os.path.join(out_root, "datasets")
+            os.makedirs(man_dir, exist_ok=True)
+            man_path = os.path.join(man_dir, f"{split}.csv")
+            with open(man_path, "w", newline="") as f:
+                wr = csv.writer(f)
+                wr.writerow(TARGET_KEYS)
+                for r in rows:
+                    wr.writerow([r[k] for k in TARGET_KEYS])
+            manifests[split] = man_path
+            print(f"[targeting] {split}: {len(rows)} images -> {man_path}")
+        return out_root, manifests
+
+
+TARGET_KEYS = ("rois", "rois_aligned", "mask_aligned", "target_class_ids",
+               "target_bbox", "target_mask")
+
+
+def _save_target_npz(split_dir, name, **arrays):
+    """Write one image's artifacts as JAX does: the masks bit-packed
+    (np.packbits of mask > 0.5, with a ``shape`` array beside them) through
+    ``savez_compressed``, every other array uncompressed under ``arr`` (the
+    float16 aligned features, ~90 MB an image at 128^3, barely compress).
+    Returns {key: path}."""
+    paths = {}
+    for key, arr in arrays.items():
+        path = os.path.join(split_dir, f"{name}_{key}.npz")
+        if key == "target_mask":
+            packed = np.packbits((arr > 0.5).astype(np.uint8))
+            np.savez_compressed(path, mask=packed,
+                                shape=np.asarray(arr.shape))
+        else:
+            np.savez(path, arr=arr)
+        paths[key] = path
+    return paths

@@ -424,13 +424,6 @@ def test_cli_without_a_card_writes_nothing(data_dir, tiny_ckpt, tmp_path):
     assert not os.path.exists(out)
 
 
-@pytest.mark.parametrize("task", [t for t in cli.TASKS if t not in cli.PORTED])
-def test_cli_training_tasks_not_ported(task, tmp_path):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli.main(["--task", task, "--config_path", str(tmp_path / "x.json"),
-                  "--device", "cpu"])
-
-
 def test_cli_rpn_evaluation_and_summary(data_dir, tiny_ckpt, tmp_path):
     out = str(tmp_path / "out")
     cfg_path = _write_tiny_config(data_dir, tiny_ckpt[0], out)

@@ -309,8 +309,6 @@ def test_cli_e2e_head_training_trains_heads_only(train_data, jax_tiny,
 
 
 UNPORTED = {
-    "head_only_mode": ("HEAD_TRAINING", dict(MODE="training")),
-    "train_bn": ("RPN_TRAINING", dict(MODE="training", TRAIN_BN=True)),
     "auto_tune_rpn": ("RPN_TRAINING", dict(MODE="training",
                                            AUTO_TUNE_RPN=True)),
     "gpu_count_2": ("HEAD_TRAINING", dict(MODE="training_head_e2e",
@@ -333,14 +331,15 @@ def test_cli_training_options_not_ported(case, tmp_path):
 
 
 def test_cli_training_head_only_exits_one(tmp_path):
-    """``python -m m3d_torch`` itself: head-only HEAD_TRAINING exits 1 and
-    writes nothing; with no card and no --device cpu RPN_TRAINING exits
-    non-zero and writes nothing."""
+    """``python -m m3d_torch`` itself: a training option not ported yet
+    (AUTO_TUNE_RPN on RPN_TRAINING) exits 1 and writes nothing; with no
+    card and no --device cpu RPN_TRAINING exits non-zero and writes
+    nothing."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     path, wdir = _write_config(tmp_path, str(tmp_path / "no_data"), "out",
-                               MODE="training")
+                               MODE="training", AUTO_TUNE_RPN=True)
     res = subprocess.run(
-        [sys.executable, "-m", "m3d_torch", "--task", "HEAD_TRAINING",
+        [sys.executable, "-m", "m3d_torch", "--task", "RPN_TRAINING",
          "--config_path", path, "--device", "cpu"], cwd=REPO, env=env,
         capture_output=True, text=True, timeout=300)
     assert res.returncode == 1 and "not ported yet" in res.stderr
