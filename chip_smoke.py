@@ -13,9 +13,12 @@ for its fallback rows, and the compact kernel through its padded entry for
 the mask stage). Phases, each printing flushed lines with the elapsed
 seconds:
 
-  env         card name and power limit, torch/CUDA versions, nvcc; arms a
+  env         card name and power limit, torch/CUDA versions, nvcc, g++,
+              the host's CPU model and cores, which host modules import
+              (h5py for the record: the port does not use it); arms a
               watchdog that dumps every thread's stack and exits non-zero
-  build       the three kernel libraries, one nvcc each, started together
+  build       the three kernel libraries, one nvcc each, and the native
+              host library (g++), started together
   load        flax msgpack -> state dict; fails if a tensor is missing
   kernel      compact kernel vs its plain PyTorch version on random compact
               batches at the bench shapes, total in {0, 1, 37, N}; padded,
@@ -60,8 +63,17 @@ seconds:
               artifacts)
   rpn_eval    RPN_EVALUATION on configs/milestone128/rpn_synth128.json and
               the same data: det@0.5_top500 >= 0.7
-  rpn_train   writes six more 128^3 volumes (seeds 2000-2005; four for
-              training, two for testing) and runs
+  native      after six more 128^3 volumes are written (seeds 2000-2005;
+              four for training, two for testing): the native host
+              library's IoU (rpn_synth128's anchors x every volume's GT,
+              within 1e-6 of numpy, equal argmaxes), NMS (30000 proposal-
+              like boxes, the numpy kept list), TIFF decode (every volume
+              written, the numpy reader's arrays) and a 128^3 MRC round
+              trip in modes 0, 1, 2, 6, 12; then the host ms of one
+              training batch by part (TIFF decode native / numpy, bz2 GT
+              masks, RPN targets with native / numpy IoU). Every later
+              training phase runs on the library
+  rpn_train   on those volumes, runs
               ``python -m m3d_torch --task RPN_TRAINING`` in-process on
               configs/milestone128/rpn_synth128_resume.json from the
               tracked checkpoint for one epoch (two steps of B = 2): finite
@@ -69,6 +81,11 @@ seconds:
               file, sidecar and the telemetry snapshot, and latest.msgpack
               read back by the port giving the trained model's RPN outputs
               exactly; the step split (forward, backward, optimiser)
+  autotune    RPN_TRAINING as rpn_train with AUTO_TUNE_RPN and
+              AUTO_TUNE_APPLY: autotune_patch.json equal to autotune_rpn
+              recomputed here, the trainer's anchors and RPN head the
+              patched config's, finite losses; det@0.5_top500 printed
+              without a floor (the checkpoint was trained for other anchors)
   e2e_train   HEAD_TRAINING (MODE training_head_e2e) on
               configs/milestone128/heads_e2e_synth128_resume.json from the
               tracked checkpoint, one epoch: finite losses, the padded
@@ -109,6 +126,15 @@ seconds:
               step): finite losses, every running statistic the run's
               BatchNorms see moved in latest.msgpack; det@0.5_top500
               printed without a floor
+  h5          the reference's Keras weight files (tests/fixtures): both
+              read by the port's own HDF5 reader, every manifest weight
+              with its sum; the fixtures' tiny model restored from
+              keras231_tiny.h5 on the card (all 92 weights, none skipped)
+              through adaptive_inference on seeded 64x64x8 volumes, every
+              compact-kernel launch held against its plain version; then
+              MRCNN_EVALUATION and RPN_EVALUATION through the CLI with
+              keras231_tiny.h5 as weights on two volumes written here:
+              every image evaluated, every artifact written
 Each training phase prints its step ms (CUDA events), the host ms to take
 each batch, the device's idle share, the peak memory and its wall time.
 
@@ -182,6 +208,26 @@ FIT_STEPS = 20
 CKPT_FILES = ("latest.msgpack", "best.msgpack", "latest_head.msgpack",
               "best_head.msgpack")
 EVAL_METRIC_TOL = 1e-3     # |adaptive - monolithic| pixel metrics and dice
+IOU_TOL = 1e-6             # native IoU vs overlaps_3d_numpy (float32)
+MRC_MODES = {0: np.int8, 1: np.int16, 2: np.float32, 6: np.uint16,
+             12: np.float16}
+# The reference's Keras weight files committed as test fixtures (layer
+# weights in each), and the fixtures' model: tests/test_h5_interop.py:29-41.
+H5_FIXTURES = {"keras231_tiny": 92, "keras231_tiny_head": 50}
+H5_TINY = dict(IMAGE_SIZE=64, IMAGE_DEPTH=8, NUM_CLASSES=2,
+               BACKBONE_STRIDES=[[4, 4, 1], [8, 8, 1], [16, 16, 1],
+                                 [32, 32, 1], [64, 64, 1]],
+               RPN_ANCHOR_SCALES=[8, 12, 16, 24, 32],
+               RPN_ANCHOR_RATIOS=[0.5, 1.0], FPN_CLASSIF_FC_LAYERS_SIZE=64,
+               HEAD_CONV_CHANNEL=32, TOP_DOWN_PYRAMID_SIZE=32, POOL_SIZE=7,
+               MASK_POOL_SIZE=14, CLASS_NAMES=["object"], MIN_ROI_SIZE=8,
+               PRE_NMS_LIMIT=512, POST_NMS_ROIS_INFERENCE=64,
+               DETECTION_MAX_INSTANCES=8, DETECTION_MIN_CONFIDENCE=0.0)
+H5_IMAGES, H5_SEED = 2, 3000  # 64 x 64 x 8 volumes of the h5 phase
+# The fused kernel (#2) needs C % 64 == 0 and the fixtures' pyramid is 32
+# wide, so the h5 phase runs the classifier chunked (the plain gather) and
+# the mask stage chunked (#1) rather than monolithically (ROADMAP.md §3).
+H5_CHUNKS = dict(CLASSIFIER_CHUNK=64, MASK_CHUNK=8)
 
 T0 = time.perf_counter()
 
@@ -1314,7 +1360,20 @@ def head_train_run(here: str, tmp: str, smi: str, root: str):
           f"statistics bit-equal to the checkpoint; {len(heads)} of "
           f"{len(groups['heads'])} head leaves and {len(moved) - len(heads)}"
           f" trunk leaves (weight decay) changed")
-    return dict(timing, wall_s=wall, epoch=epoch), \
+    # The host split's npz part: one batch's artifacts loaded as the
+    # HeadGenerator loads them.
+    from m3d_torch.data.datasets import ToyHeadDataset
+
+    ds = ToyHeadDataset()
+    ds.load_dataset(root, is_train=True)
+    ds.prepare()
+    t = time.perf_counter()
+    for i in range(min(len(ds.image_info), int(trainer.config.BATCH_SIZE))):
+        ds.load_data(i)
+    npz_ms = (time.perf_counter() - t) * 1e3
+    print(f"[{smi}] head_train host split: npz load of one batch "
+          f"{npz_ms:.1f} ms", flush=True)
+    return dict(timing, wall_s=wall, epoch=epoch, npz_load_ms=npz_ms), \
         os.path.join(wdir, "best.msgpack"), launches
 
 
@@ -1683,6 +1742,355 @@ def matched_detections(det_ref, valid_ref, det, valid) -> int:
     return n
 
 
+def host_split(ds, anchors, cfg, ids) -> dict:
+    """Host ms of one training batch's parts, summed over the images
+    ``ids``: TIFF decode (native library / numpy reader), the bz2 GT masks,
+    RPN targets (native IoU / numpy IoU)."""
+    from types import SimpleNamespace
+
+    from m3d_torch import native
+    from m3d_torch.data import rpn_targets
+    from m3d_torch.utils.metrics import overlaps_3d_numpy
+    from m3d_torch.utils.tiffio import _read_numpy
+
+    def ms(fn):
+        t = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t) * 1e3
+
+    split = {k: 0.0 for k in ("tiff_native", "tiff_numpy", "gt_masks_bz2",
+                              "rpn_targets_native_iou",
+                              "rpn_targets_numpy_iou")}
+    for i in ids:
+        path = ds.image_info[i]["path"]
+        split["tiff_native"] += ms(lambda: native.read_tiff_volume(path))[1]
+        split["tiff_numpy"] += ms(lambda: _read_numpy(path))[1]
+        (boxes, cls, _), t = ms(lambda: ds.load_data(i))
+        split["gt_masks_bz2"] += t
+        for key, lib in (("rpn_targets_native_iou", native),
+                         ("rpn_targets_numpy_iou", SimpleNamespace(
+                             iou_matrix_3d=overlaps_3d_numpy))):
+            rpn_targets.native = lib
+            try:
+                split[key] += ms(lambda: rpn_targets.build_rpn_targets(
+                    anchors, cls, boxes, cfg,
+                    rng=np.random.RandomState(0)))[1]
+            finally:
+                rpn_targets.native = native
+    return {k: round(v, 3) for k, v in split.items()}
+
+
+def native_run(here: str, tmp: str, smi: str) -> dict:
+    """The native host library against its plain versions on this run's
+    data: IoU of rpn_synth128's anchors x every training volume's GT
+    (max abs difference <= IOU_TOL, equal argmaxes), NMS on NMS_N
+    proposal-like boxes (equal kept lists), every volume TIFF written
+    (equal arrays), a 128^3 MRC round trip in each mode; then the host
+    split of a training batch."""
+    import glob
+
+    from m3d_torch import native
+    from m3d_torch.anchors import normalized_pyramid_anchors
+    from m3d_torch.config import load_config
+    from m3d_torch.data.datasets import ToyDataset
+    from m3d_torch.data.synthetic import proposal_like_boxes
+    from m3d_torch.ops.nms3d import nms_3d_numpy
+    from m3d_torch.utils.metrics import overlaps_3d_numpy
+    from m3d_torch.utils.mrcio import read_mrc, write_mrc
+    from m3d_torch.utils.tiffio import _read_numpy
+
+    lib = native.LIB
+    lib.load()
+    how = (f"built in {lib.build_seconds:.2f}s" if lib.build_seconds
+           else "cached")
+    phase("native", f"{os.path.basename(lib.path())}: {how}")
+    cfg = load_config(os.path.join(here, RPN_CONFIG))
+    anchors = normalized_pyramid_anchors(
+        cfg, voxel_z_over_y=float(getattr(cfg, "VOXEL_Z_OVER_Y", 1.0)))
+    scale = np.array([SIZE] * 6, np.float32)
+    data = os.path.join(tmp, "train_data")
+    worst, n_gt, iou_ms = 0.0, 0, [0.0, 0.0]
+    for is_train in (True, False):
+        ds = ToyDataset()
+        ds.load_dataset(data, is_train=is_train,
+                        class_names=tuple(cfg.CLASS_NAMES))
+        ds.prepare()
+        for i in range(len(ds.image_info)):
+            boxes, _, _ = ds.load_data(i, masks_needed=False)
+            gt = np.clip(boxes.astype(np.float32) / scale, 0, 1)
+            t = time.perf_counter()
+            got = native.iou_matrix_3d(anchors, gt)
+            iou_ms[0] += (time.perf_counter() - t) * 1e3
+            t = time.perf_counter()
+            ref = overlaps_3d_numpy(anchors, gt)
+            iou_ms[1] += (time.perf_counter() - t) * 1e3
+            err = float(np.abs(got - ref).max())
+            if err > IOU_TOL or not (
+                    np.array_equal(got.argmax(0), ref.argmax(0))
+                    and np.array_equal(got.argmax(1), ref.argmax(1))):
+                raise AssertionError(f"native IoU vs numpy: max abs "
+                                     f"{err}, argmaxes differ")
+            worst, n_gt = max(worst, err), n_gt + gt.shape[0]
+    phase("native", f"iou_matrix_3d: {anchors.shape[0]} anchors x {n_gt} "
+          f"GT boxes of {TRAIN_IMAGES} volumes, max abs {worst:.3e} "
+          f"(<= {IOU_TOL}), row and column argmaxes equal; "
+          f"{iou_ms[0]:.1f} ms native, {iou_ms[1]:.1f} ms numpy")
+
+    rng = np.random.RandomState(7)
+    boxes = proposal_like_boxes(rng, NMS_N)
+    scores = rng.uniform(size=NMS_N).astype(np.float32)
+    t = time.perf_counter()
+    kept = native.nms_3d_host(boxes, scores, NMS_THR, NMS_K)
+    nms_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    want = nms_3d_numpy(boxes, scores, NMS_THR, NMS_K)
+    nms_np_ms = (time.perf_counter() - t) * 1e3
+    if not np.array_equal(kept, want):
+        raise AssertionError(f"native NMS kept {len(kept)}, numpy "
+                             f"{len(want)}")
+    phase("native", f"nms_3d_host: N={NMS_N}, kept {len(kept)}, equal to "
+          f"nms_3d_numpy; {nms_ms:.1f} ms native, {nms_np_ms:.1f} ms numpy")
+
+    tiffs = sorted(glob.glob(os.path.join(tmp, "*", "images", "*.tiff")))
+    for path in tiffs:
+        got, ref = native.read_tiff_volume(path), _read_numpy(path)
+        if got is None or got.dtype != ref.dtype or \
+                not np.array_equal(got, ref):
+            raise AssertionError(f"native TIFF read differs: {path}")
+    phase("native", f"read_tiff_volume: {len(tiffs)} volume TIFFs equal "
+          f"to the numpy reader")
+
+    mrc = {}
+    for mode, dtype in MRC_MODES.items():
+        vol = (rng.randn(SIZE, SIZE, SIZE) * 40).astype(dtype)
+        path = os.path.join(tmp, f"v{mode}.mrc")
+        t = time.perf_counter()
+        write_mrc(path, vol)
+        back = read_mrc(path)
+        mrc[mode] = round((time.perf_counter() - t) * 1e3, 2)
+        os.remove(path)
+        if back.dtype != vol.dtype or not np.array_equal(back, vol):
+            raise AssertionError(f"MRC mode {mode} round trip differs")
+    phase("native", f"MRC {SIZE}^3 round trips equal, ms by mode {mrc}")
+
+    ds = ToyDataset()
+    ds.load_dataset(data, is_train=True, class_names=tuple(cfg.CLASS_NAMES))
+    ds.prepare()
+    train_cfg = load_config(os.path.join(here, RPN_TRAIN_CONFIG))
+    split = host_split(ds, anchors, train_cfg,
+                       range(int(train_cfg.IMAGES_PER_GPU)))
+    print(f"[{smi}] native host split per training batch of "
+          f"{train_cfg.IMAGES_PER_GPU}, ms: {json.dumps(split)}", flush=True)
+    return {"build_s": lib.build_seconds, "iou_max_abs": worst,
+            "host_split_ms": split, "nms_ms": nms_ms,
+            "nms_numpy_ms": nms_np_ms, "mrc_ms": mrc}
+
+
+def autotune_run(here: str, tmp: str, smi: str) -> dict:
+    """RPN_TRAINING with AUTO_TUNE_RPN and AUTO_TUNE_APPLY through the
+    port's CLI, in this process, one epoch from the tracked checkpoint:
+    autotune_patch.json equal to ``autotune_rpn`` recomputed on the same
+    training split, the trainer's anchors and RPN head those of the patched
+    config, finite losses; det@0.5_top500 printed without a floor (the
+    checkpoint was trained for other anchors)."""
+    from m3d_torch import __main__ as cli
+    from m3d_torch.anchors import normalized_pyramid_anchors
+    from m3d_torch.config import load_config
+    from m3d_torch.data.datasets import ToyDataset
+    from m3d_torch.train.autotune import autotune_rpn
+
+    with open(os.path.join(here, RPN_TRAIN_CONFIG)) as f:
+        from_epoch = int(json.load(f)["FROM_EPOCH"])
+    out = os.path.join(tmp, "out_autotune")
+    wdir = os.path.join(out, "weights")
+    data = os.path.join(tmp, "train_data")
+    path = write_config(
+        os.path.join(here, RPN_TRAIN_CONFIG),
+        os.path.join(tmp, "autotune.json"), DATA_DIR=data, OUTPUT_DIR=out,
+        WEIGHT_DIR=wdir, RPN_WEIGHTS=os.path.join(here, CHECKPOINT),
+        EPOCHS=from_epoch + 1, AUTO_TUNE_RPN=True, AUTO_TUNE_APPLY=True)
+    before = load_config(path)
+    n_before = normalized_pyramid_anchors(before).shape[0]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t = time.perf_counter()
+    trainer = cli.main(["--task", "RPN_TRAINING", "--config_path", path])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = launch_counts()
+    timing = train_timing("autotune", trainer, smi)
+    (epoch,) = trainer.history
+
+    ds = ToyDataset()
+    ds.load_dataset(data, is_train=True,
+                    class_names=tuple(before.CLASS_NAMES))
+    ds.prepare()
+    before.AUTO_TUNE_SAVE_PATCH = False
+    patch = autotune_rpn(ds.filter_positive(), before, verbose=False)
+    with open(os.path.join(wdir, "autotune_patch.json")) as f:
+        saved = f.read()
+    if not patch or saved != json.dumps(patch, indent=2):
+        raise AssertionError(f"autotune: autotune_patch.json {saved} is not "
+                             f"the recomputed patch {patch}")
+    patched = load_config(path)
+    for k, v in patch.items():
+        setattr(patched, k, v)
+    want = normalized_pyramid_anchors(
+        patched, voxel_z_over_y=float(getattr(patched, "VOXEL_Z_OVER_Y", 1.0)))
+    raw = trainer.model.state_dict()["rpn.rpn_class_raw.weight"]
+    if trainer.anchors.shape != want.shape or \
+            not np.array_equal(trainer.anchors, want) or \
+            raw.shape[0] != 2 * len(patch["RPN_ANCHOR_RATIOS"]):
+        raise AssertionError(f"autotune: trainer anchors "
+                             f"{trainer.anchors.shape}, RPN head "
+                             f"{tuple(raw.shape)}; patched config's "
+                             f"anchors {want.shape}")
+    phase("autotune", f"{wall:.2f}s, {timing['steps']} steps, kernel "
+          f"launches {launches}; patch {json.dumps(patch)} equal to "
+          f"autotune_rpn recomputed; anchors {n_before} -> "
+          f"{want.shape[0]}, RPN head {tuple(raw.shape)}; "
+          f"det@0.5_top500 {epoch['det@0.5_top500']:.4f} (no floor); "
+          f"epoch {json.dumps(epoch)}")
+    return dict(timing, wall_s=wall, epoch=epoch, patch=patch,
+                anchors=[n_before, int(want.shape[0])], launches=launches)
+
+
+def h5_manifest_check(here: str, name: str) -> int:
+    """``load_keras_h5`` on a committed fixture: every weight of its
+    manifest present with the manifest's sum (rtol 1e-5, the BatchNorm
+    epsilon folded into the moving variance). Returns the count."""
+    from m3d_torch.utils.h5_import import (FLAX_BN_EPS, KERAS_BN_EPS,
+                                           load_keras_h5)
+
+    fix = os.path.join(here, "tests", "fixtures")
+    params, stats = load_keras_h5(os.path.join(fix, f"{name}.h5"))
+    with open(os.path.join(fix, f"{name}.manifest.json")) as f:
+        manifest = json.load(f)
+    names = {"gamma": "scale", "beta": "bias", "moving_mean": "mean",
+             "moving_variance": "var"}
+    for key, info in manifest.items():
+        layer, leaf = key.split("/")
+        tree = stats if leaf.startswith("moving_") else params
+        arr = np.asarray(tree[layer][names.get(leaf, leaf)], np.float64)
+        want = info["sum"]
+        if leaf == "moving_variance":
+            want += (KERAS_BN_EPS - FLAX_BN_EPS) * arr.size
+        if not np.isclose(arr.sum(), want, rtol=1e-5, atol=0.0) or \
+                list(arr.shape) != list(info["shape"]):
+            raise AssertionError(f"h5 {name} {key}: sum {arr.sum()} shape "
+                                 f"{arr.shape}, manifest {info}")
+    return len(manifest)
+
+
+def h5_run(here: str, tmp: str, smi: str, errs: dict, dev) -> dict:
+    """Keras .h5 weights: (a) both committed fixtures read by the port's
+    own reader, every manifest weight with its sum; (b) the fixtures' tiny
+    model on the card restored from keras231_tiny.h5 (all 92 weights
+    landed, none skipped), adaptive_inference on seeded volumes with every
+    compact-kernel launch held against its plain version; (c)
+    MRCNN_EVALUATION and RPN_EVALUATION through the CLI with
+    keras231_tiny.h5 as their weights on a dataset written here: every
+    image evaluated, every artifact written (no recall floor: the weights
+    are random). Returns the kernel launches of (b) and (c)."""
+    from m3d_torch import __main__ as cli
+    from m3d_torch.anchors import normalized_pyramid_anchors
+    from m3d_torch.checkpoints import restore_weights
+    from m3d_torch.config import Config
+    from m3d_torch.data.synthetic import generate_experiment, split_dataset
+    from m3d_torch.image_meta import default_meta
+    from m3d_torch.models.inference import adaptive_inference
+    from m3d_torch.models.mask_rcnn import MaskRCNN, init_params
+
+    t = time.perf_counter()
+    counts = {name: h5_manifest_check(here, name) for name in H5_FIXTURES}
+    if counts != H5_FIXTURES:
+        raise AssertionError(f"h5 fixtures: {counts} of {H5_FIXTURES}")
+    phase("h5", f"load_keras_h5 (the port's HDF5 reader, whether h5py "
+          f"imports or not): manifest weights {counts} with their sums, "
+          f"{time.perf_counter() - t:.2f}s")
+
+    weights = os.path.join(here, "tests", "fixtures", "keras231_tiny.h5")
+    cfg = Config(**H5_TINY)
+    model = MaskRCNN.from_config(cfg, mode="inference", device=dev).eval()
+    init_params(model, 0)
+    stats = restore_weights(model, weights)
+    if stats["loaded"] != H5_FIXTURES["keras231_tiny"] or stats["skipped"] \
+            or stats["sliced"]:
+        raise AssertionError(f"h5 tiny model restore: {stats}")
+    rng = np.random.RandomState(H5_SEED)
+    image = torch.as_tensor(rng.uniform(-1, 1, (H5_IMAGES, 64, 64, 8, 1))
+                            .astype(np.float32), device=dev)
+    meta = torch.as_tensor(np.tile(default_meta(cfg)[None],
+                                   (H5_IMAGES, 1)), device=dev)
+    anchors = torch.as_tensor(normalized_pyramid_anchors(cfg), device=dev)
+    spy = Spy()
+    reset_counts()
+    try:
+        out = adaptive_inference(
+            model, image, meta, anchors, device=dev,
+            classifier_chunk=H5_CHUNKS["CLASSIFIER_CHUNK"],
+            mask_chunk=H5_CHUNKS["MASK_CHUNK"])
+        torch.cuda.synchronize()
+    finally:
+        spy.restore()
+    adaptive = launch_counts()
+    calls = [a for a in spy.calls["roialign_compact"] if a[0].shape[0]]
+    if adaptive["roialign_compact"] < 1 or \
+            len(calls) != adaptive["roialign_compact"]:
+        raise AssertionError(f"h5 tiny model: compact kernel launches "
+                             f"{adaptive}, {len(calls)} calls with rows")
+    if not all(torch.isfinite(out[k].float()).all() for k in
+               ("detections", "mrcnn_masks")):
+        raise AssertionError("h5 tiny model: non-finite outputs")
+    for i, args in enumerate(calls):
+        errs["roialign_compact"].append(compare(
+            args, f"h5 tiny model captured mask-stage inputs, call {i}"))
+    phase("h5", f"tiny model from keras231_tiny.h5 restored {stats}; "
+          f"adaptive_inference on {H5_IMAGES} seeded 64x64x8 volumes: "
+          f"detections/image {out['detections_valid'].sum(1).tolist()}, "
+          f"kernel launches {adaptive}, each held against its plain "
+          f"version")
+
+    data = os.path.join(tmp, "h5_data")
+    generate_experiment(H5_IMAGES, 64, data, seed=H5_SEED, image_depth=8)
+    split_dataset(data, test_ratio=1.0)
+    evals = {}
+    for task in ("MRCNN_EVALUATION", "RPN_EVALUATION"):
+        out_dir = os.path.join(tmp, f"out_h5_{task.lower()}")
+        path = os.path.join(tmp, f"h5_{task.lower()}.json")
+        with open(path, "w") as f:
+            json.dump(dict(H5_TINY, **H5_CHUNKS, DATA_DIR=data,
+                           OUTPUT_DIR=out_dir,
+                           WEIGHT_DIR=os.path.join(out_dir, "weights"),
+                           RPN_WEIGHTS=weights, HEAD_WEIGHTS=weights,
+                           EVALUATION_STEPS=H5_IMAGES), f)
+        reset_counts()
+        t = time.perf_counter()
+        res = cli.main(["--task", task, "--config_path", path])
+        torch.cuda.synchronize()
+        evals[task] = launch_counts()
+        if task == "MRCNN_EVALUATION":
+            names = [str(i).zfill(6) for i in range(H5_IMAGES)]
+            want = [f"{n}.{ext}" for n in names for ext in ("tiff", "csv")]
+            want.append("evaluation_summary.json")
+            absent = [w for w in want
+                      if not os.path.exists(os.path.join(out_dir, w))]
+            if len(res["per_image"]) != H5_IMAGES or absent:
+                raise AssertionError(f"h5 {task}: {len(res['per_image'])} "
+                                     f"images, artifacts missing {absent}")
+            shown = {k: res["summary"][k] for k in (
+                "det_recall", "det_precision", "instance_dice")}
+        else:
+            if "det@0.5_top500" not in res:
+                raise AssertionError(f"h5 {task}: metrics {res}")
+            shown = {k: res[k] for k in ("det@0.5_top500",
+                                         "mean_coord_error")}
+        phase("h5", f"{task} with keras231_tiny.h5 weights: "
+              f"{time.perf_counter() - t:.2f}s, {json.dumps(shown)} (no "
+              f"floor: random weights), kernel launches {evals[task]}")
+    return {"adaptive": adaptive, **evals}
+
+
 def nms_check(dev) -> None:
     """nms_3d on NMS_N proposal-like boxes (above FIXPOINT_MAX_N, so the
     blockwise branch) against the numpy oracle: the kept indices must be
@@ -1717,6 +2125,24 @@ def nms_check(dev) -> None:
           f"host syncs included), oracle {oracle_s:.2f} s on the host")
 
 
+def host_cpu() -> str:
+    """The host CPU's model name (lscpu, else /proc/cpuinfo) and
+    architecture."""
+    import platform
+
+    names = []
+    lscpu = shutil.which("lscpu")
+    if lscpu:
+        out = subprocess.run([lscpu], capture_output=True, text=True).stdout
+        names = [ln.split(":", 1)[1].strip() for ln in out.splitlines()
+                 if ln.startswith(("Model name", "Vendor ID"))]
+    if not names and os.path.exists("/proc/cpuinfo"):
+        with open("/proc/cpuinfo") as f:
+            names = [ln.split(":", 1)[1].strip() for ln in f
+                     if ln.startswith(("model name", "Hardware"))][:1]
+    return f"{' / '.join(names) or 'model unknown'} ({platform.machine()})"
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1738,8 +2164,13 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} "
           f"x{torch.cuda.device_count()}")
     print(smi, flush=True)
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True)
+    gxx = gxx.stdout.splitlines()[0] if gxx.returncode == 0 else "absent"
+    phase("env", f"g++ {gxx}; host CPU {host_cpu()}, {os.cpu_count()} cores "
+          f"({len(os.sched_getaffinity(0))} usable)")
     host_modules = {}
-    for mod in ("PIL", "matplotlib", "scipy"):
+    for mod in ("PIL", "matplotlib", "scipy", "h5py"):
         try:
             __import__(mod)
             host_modules[mod] = "imports"
@@ -1762,8 +2193,10 @@ def main() -> int:
     from m3d_torch.utils.metrics import detection_recall
 
     # build ------------------------------------------------------------
+    from m3d_torch import native
+
     t = time.perf_counter()
-    libs = (rc.LIB, rf.LIB, rs.LIB)
+    libs = (rc.LIB, rf.LIB, rs.LIB, native.LIB)
     build_all(libs)
     for lib in libs:
         ptxas = " | ".join(ln.strip() for ln in lib.build_log.splitlines()
@@ -1771,7 +2204,8 @@ def main() -> int:
         how = (f"built in {lib.build_seconds:.2f}s" if lib.build_seconds
                else "cached")
         phase("build", f"{lib.name}: {how} {ptxas}")
-    phase("build", f"{time.perf_counter() - t:.2f}s for all three")
+    phase("build", f"{time.perf_counter() - t:.2f}s for all four (three "
+          f"kernel libraries, the native host library)")
 
     # load -------------------------------------------------------------
     t = time.perf_counter()
@@ -2141,7 +2575,9 @@ def main() -> int:
                       test_ratio=TRAIN_TEST_RATIO)
         phase("rpn_train", f"dataset of {TRAIN_IMAGES} volumes {SIZE}^3 "
               f"written in {time.perf_counter() - t:.2f}s")
+        native_res = native_run(here, tmp, smi)
         rpn_train = rpn_train_run(here, tmp, smi)
+        autotune = autotune_run(here, tmp, smi)
         e2e_train, best, e2e_launch = e2e_train_run(here, tmp, smi, errs)
         train_eval_launch, _ = eval_run(
             here, tmp, "train_eval", smi, errs, HEAD_WEIGHTS=best)
@@ -2158,6 +2594,7 @@ def main() -> int:
         mrcnn_eval_launch, _ = eval_run(here, tmp, "mrcnn_eval", smi, errs,
                                         HEAD_WEIGHTS=mrcnn_best)
         train_bn, bn_launch = train_bn_run(here, tmp, smi)
+        h5_launch = h5_run(here, tmp, smi, errs, dev)
         print(f"[{smi}] training steps: " + json.dumps({
             "rpn_train": {k: rpn_train[k] for k in (
                 "step_ms_median_after_first", "host_ms_median_after_first",
@@ -2172,13 +2609,16 @@ def main() -> int:
             **{name: {k: run[k] for k in (
                 "step_ms_median_after_first", "host_ms_median_after_first",
                 "device_idle_share", "peak_gib", "wall_s")} for name, run in (
+                ("autotune", autotune),
                 ("head_train", head), ("mrcnn_train", mrcnn),
                 ("train_bn rpn", train_bn["rpn"]),
                 ("train_bn mrcnn", train_bn["mrcnn"]))},
             "rpn_split_ms": rpn_train["split"],
             "e2e_split_ms": e2e_fit["split"],
             "mrcnn_split_ms": mrcnn["split"],
-            "mrcnn_gather_ms": mrcnn["gather"]}), flush=True)
+            "mrcnn_gather_ms": mrcnn["gather"],
+            "native_host_split_ms": native_res["host_split_ms"],
+            "head_npz_load_ms": head["npz_load_ms"]}), flush=True)
     # The two graphs compute the same function: equal detection counts,
     # pixel metrics and dice within EVAL_METRIC_TOL (bf16 order only).
     for key in ("det_tp", "det_fp", "det_fn"):
@@ -2214,7 +2654,9 @@ def main() -> int:
             "head_eval": head_eval_launch.get(name, 0),
             "mrcnn_train": mrcnn_launch.get(name, 0),
             "mrcnn_eval": mrcnn_eval_launch.get(name, 0),
-            "train_bn": bn_launch.get(name, 0)}
+            "train_bn": bn_launch.get(name, 0),
+            "autotune": autotune["launches"].get(name, 0),
+            **{f"h5 {key}": n.get(name, 0) for key, n in h5_launch.items()}}
         if name == "roialign_padded":   # its calls on the training paths
             k["e2e_train_shapes"] = e2e_train["padded"]
             k["targeting_shapes"] = target["padded"]

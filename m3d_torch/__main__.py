@@ -9,9 +9,12 @@
 The same JSON configs, on-disk datasets and artifacts as main.py; all six
 tasks are ported. HEAD_TRAINING runs e2e with MODE "training_head_e2e" and
 head-only (from TARGET_GENERATION's artifacts) with any other MODE, as
-main.py dispatches it. The training options not ported yet (AUTO_TUNE_RPN,
-GPU_COUNT > 1, .h5 weights) exit non-zero naming the ROADMAP.md item that
-brings them, having read nothing but the config. The model runs on the
+main.py dispatches it. RPN_TRAINING runs AUTO_TUNE_RPN (and applies its
+patch under AUTO_TUNE_APPLY); every ``*_WEIGHTS`` key takes a flax msgpack
+checkpoint or a reference Keras ``.h5`` (read without h5py). The one
+training option not ported yet, GPU_COUNT > 1, exits non-zero naming the
+ROADMAP.md item that brings it, having read nothing but the config. The
+model runs on the
 card unless ``--device cpu`` is given; with no card and no ``--device
 cpu`` the command exits non-zero before it reads or writes anything.
 ``main(argv)`` returns the task's result (MRCNN_EVALUATION: {"summary",

@@ -1,6 +1,7 @@
-"""Flax msgpack checkpoints both ways (port of m3d/train/checkpoints.py:
-``load_params``, ``save_params``, ``extract_subtree``, ``BestAndLatest``,
-``restore_by_name`` with its class-dim slicing, ``infer_head_params`` and
+"""Flax msgpack checkpoints both ways, and the reference's Keras ``.h5``
+files read (port of m3d/train/checkpoints.py: ``load_params``,
+``save_params``, ``extract_subtree``, ``BestAndLatest``, ``restore_by_name``
+with its suffix match and class-dim slicing, ``infer_head_params`` and
 ``autoconfigure_heads``).
 
 The JAX package saves its parameter trees with
@@ -18,6 +19,12 @@ becomes ``resnet.Bottleneck_0.res2a_branch2a``), kernels change layout, and
 f16 storage is cast back to float32. ``params_to_jax`` is its exact
 inverse, so the port's checkpoints are flax trees that JAX's ``load_params``
 and ``restore_by_name`` read.
+
+Weights reach a model as they reach JAX's variables (``restore_weights``):
+the file's tree is merged into the model's own flax tree by
+``restore_tree_by_name`` (exact path, else the longest unique path suffix,
+so a Keras file's layer-group names land; then the class-dim slice and the
+cast to the model's dtype), and the merged tree is copied in by exact name.
 """
 
 from __future__ import annotations
@@ -232,7 +239,17 @@ def save_params(path: str, tree, metadata: dict | None = None) -> str:
 
 
 def load_params(path: str):
-    """Read a flax msgpack checkpoint. Returns (tree, sidecar metadata)."""
+    """Read a checkpoint: flax msgpack, or a reference Keras ``.h5`` /
+    ``.hdf5`` translated to a flax-shaped tree keyed by layer name (as
+    JAX's ``load_params`` does). Returns (tree, sidecar metadata)."""
+    if path.endswith((".h5", ".hdf5")):
+        from m3d_torch.utils.h5_import import load_keras_h5
+
+        src_params, src_stats = load_keras_h5(path)
+        tree = {"params": src_params}
+        if src_stats:
+            tree["batch_stats"] = src_stats
+        return tree, {"format": "keras_h5"}
     with open(path, "rb") as f:
         tree = msgpack_restore(f.read())
     meta = {}
@@ -349,9 +366,10 @@ class BestAndLatest:
         return improved
 
 
-def _try_class_slice(src: torch.Tensor, dst: torch.Tensor):
-    """Slice src down to dst when they differ in exactly one axis and src is
-    larger there (class-count change, core/models.py:5064-5141)."""
+def _try_class_slice(src, dst):
+    """Slice src (a tensor or an array) down to dst when they differ in
+    exactly one axis and src is larger there (class-count change,
+    core/models.py:5064-5141)."""
     if src.ndim != dst.ndim:
         return None
     diff = [i for i in range(src.ndim) if src.shape[i] != dst.shape[i]]
@@ -360,7 +378,72 @@ def _try_class_slice(src: torch.Tensor, dst: torch.Tensor):
     ax = diff[0]
     if src.shape[ax] < dst.shape[ax]:
         return None
-    return src.narrow(ax, 0, dst.shape[ax])
+    sl = [slice(None)] * src.ndim
+    sl[ax] = slice(0, dst.shape[ax])
+    return src[tuple(sl)]
+
+
+def restore_tree_by_name(target, source, skip_mismatch: bool = True,
+                         class_slice: bool = True, verbose: bool = False):
+    """Merge the flax-shaped tree ``source`` into ``target`` by path name
+    (JAX's ``restore_by_name``, on nested dicts of numpy arrays):
+
+    - exact path and shape: the source's value;
+    - otherwise the longest path suffix that names one source leaf (or one
+      leaf ending in the whole target path): how a Keras file's layer
+      groups, or a tree saved under another root, land;
+    - a source larger in one axis is sliced down (class-count change);
+    - every value is cast to its target leaf's dtype.
+
+    Returns (merged tree, stats {"loaded", "sliced", "skipped",
+    "missing"}), counted over the target's leaves.
+    """
+    sflat = {"/".join(k): np.asarray(v) for k, v in _flatten(source)}
+    by_suffix: dict[str, list[tuple[str, np.ndarray]]] = {}
+    for k, v in sflat.items():
+        parts = k.split("/")
+        for i in range(len(parts)):
+            by_suffix.setdefault("/".join(parts[i:]), []).append((k, v))
+
+    stats = {"loaded": 0, "sliced": 0, "skipped": 0, "missing": 0}
+    out: dict = {}
+    for path, tval in _flatten(target):
+        key = "/".join(path)
+        tval = np.asarray(tval)
+        cand = sflat.get(key)
+        if cand is None:
+            for i in range(len(path)):
+                matches = by_suffix.get("/".join(path[i:]), [])
+                if len(matches) == 1:
+                    cand = matches[0][1]
+                    break
+                exact = [m for m in matches if m[0].endswith(key)]
+                if len(exact) == 1:
+                    cand = exact[0][1]
+                    break
+        value = tval
+        if cand is None:
+            stats["missing"] += 1
+        elif cand.shape == tval.shape:
+            value = cand.astype(tval.dtype, copy=False)
+            stats["loaded"] += 1
+        elif class_slice and (part := _try_class_slice(cand, tval)) \
+                is not None:
+            value = part.astype(tval.dtype, copy=False)
+            stats["sliced"] += 1
+        elif skip_mismatch:
+            if verbose:
+                print(f"[restore_by_name] shape mismatch {key}: "
+                      f"{cand.shape} vs {tval.shape}")
+            stats["skipped"] += 1
+        else:
+            raise ValueError(
+                f"shape mismatch for {key}: {cand.shape} vs {tval.shape}")
+        node = out
+        for part_name in path[:-1]:
+            node = node.setdefault(part_name, {})
+        node[path[-1]] = value
+    return out, stats
 
 
 def restore_by_name(model: torch.nn.Module, state: dict[str, torch.Tensor]):
@@ -392,15 +475,31 @@ def restore_by_name(model: torch.nn.Module, state: dict[str, torch.Tensor]):
     return stats
 
 
+def restore_weights(model: torch.nn.Module, path: str) -> dict:
+    """Restore a checkpoint file (flax msgpack or Keras ``.h5``) into
+    ``model`` as JAX restores it into its variables: ``restore_tree_by_name``
+    of the file's tree into the model's own flax tree, then the merged tree
+    copied in by exact name. Returns the merge's stats (over the model's
+    leaves, as JAX's)."""
+    tree, _ = load_params(path)
+    merged, stats = restore_tree_by_name(params_to_jax(model.state_dict()),
+                                         tree)
+    del tree
+    restore_by_name(model, params_from_jax(merged))
+    return stats
+
+
 def infer_head_params(path: str) -> dict:
     """Recover head hyperparameters (POOL_SIZE, FPN_CLASSIF_FC_LAYERS_SIZE,
     HEAD_CONV_CHANNEL, NUM_CLASSES, TOP_DOWN_PYRAMID_SIZE) from a msgpack
     checkpoint's kernel shapes, the reference's introspection that adapts a
     config to the head widths a checkpoint was trained with
-    (core/models.py:5144-5203). Reference .h5 files are not read yet."""
+    (core/models.py:5144-5203); reference .h5 files through
+    ``infer_head_params_from_h5``."""
     if path.endswith((".h5", ".hdf5")):
-        raise NotImplementedError(f"{path}: .h5 checkpoints are not ported "
-                                  f"yet (ROADMAP.md §1)")
+        from m3d_torch.utils.h5_import import infer_head_params_from_h5
+
+        return infer_head_params_from_h5(path)
     tree, _ = load_params(path)
     found: dict = {}
     for keys, val in _flatten(tree):

@@ -298,16 +298,7 @@ def unported_training(task: str, config) -> str | None:
     """Why ``task`` with this config cannot run on the port yet (the
     ROADMAP.md item that brings it), or None. Read from the config alone,
     before any other file is touched."""
-    if task == "RPN_TRAINING" and bool(getattr(config, "AUTO_TUNE_RPN",
-                                               False)):
-        return ("AUTO_TUNE_RPN true: autotune.py is not ported yet "
-                "(ROADMAP.md §1 item 4)")
     if int(getattr(config, "GPU_COUNT", 1)) > 1:
         return ("GPU_COUNT > 1: multi-GPU training is not ported yet "
                 "(ROADMAP.md §1 item 6)")
-    for key in ("RPN_WEIGHTS", "HEAD_WEIGHTS", "MASK_WEIGHTS"):
-        path = str(getattr(config, key, None) or "")
-        if path.endswith((".h5", ".hdf5")):
-            return (f"{key} {path}: .h5 weights are not ported yet "
-                    f"(ROADMAP.md §1 item 5, h5_import)")
     return None

@@ -8,16 +8,17 @@ per GT (mean + std of the top-k IoUs, min positives per GT), pos/neg balancing
 to RPN_TRAIN_ANCHORS_PER_IMAGE, and standardized deltas packed into a fixed
 [A_train, 6] buffer (positives first, in anchor order).
 
-The ATSS loop is vectorized over GT boxes. The IoU matrix is numpy's
-(``overlaps_3d_numpy`` of m3d_torch/utils/metrics.py); the
-JAX package may compute it with its native C++ library instead.
+The ATSS loop is vectorized over GT boxes. The IoU matrix, the host hot
+loop, comes from the native C++ library (``m3d_torch.native.iou_matrix_3d``,
+the same bits as the JAX package's library; ``overlaps_3d_numpy`` of
+m3d_torch/utils/metrics.py is its plain version).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from m3d_torch.utils.metrics import overlaps_3d_numpy
+from m3d_torch import native
 
 
 def build_rpn_targets(anchors, gt_class_ids, gt_boxes, config, rng=None,
@@ -58,7 +59,7 @@ def build_rpn_targets(anchors, gt_class_ids, gt_boxes, config, rng=None,
     elif g_max <= 1.5 < 2.0 < a_max:
         anchors_w = np.clip(anchors_w / scale, 0.0, 1.0)
 
-    overlaps = overlaps_3d_numpy(anchors_w, gt_w)                    # [A, G]
+    overlaps = native.iou_matrix_3d(anchors_w, gt_w)                 # [A, G]
     anchor_iou_max = overlaps.max(axis=1)
     gt_argmax = overlaps.argmax(axis=0)
 

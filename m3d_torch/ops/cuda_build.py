@@ -1,4 +1,5 @@
-"""Build and load the port's CUDA kernel libraries.
+"""Build and load the port's C-ABI libraries: the CUDA kernels and the
+native host library.
 
 Each ``m3d_torch/csrc/<name>.cu`` builds with one plain ``nvcc -shared``
 call (C ABI, no PyTorch headers: seconds, not minutes) into its own
@@ -6,7 +7,11 @@ library ``m3d_torch/_build/<name>_<tag>.so``, where ``tag`` hashes that
 source and the flags (a library that calls into libcuda, as the fused
 kernel does for its TMA tensor map, adds ``-lcuda``). The library is built
 at first use and rebuilt when either changes; it is loaded with ctypes.
-``build_all`` starts one nvcc per source at once.
+``build_all`` starts one nvcc per source at once. The host library
+``csrc/m3d_native.cpp`` builds the same way with g++ (``m3d_torch/
+native.py``). A build goes to a per-process temporary file that is renamed
+into place, so processes that build at once do not collide; a failed
+build raises with the compiler's output.
 """
 
 from __future__ import annotations
@@ -28,6 +33,14 @@ P = ctypes.c_void_p
 I = ctypes.c_int
 
 
+def gxx() -> str:
+    found = shutil.which("g++")
+    if not found:
+        raise RuntimeError("g++ not found: the native host library "
+                           "(csrc/m3d_native.cpp) needs it")
+    return found
+
+
 def nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if cand and os.path.exists(os.path.join(cand, "bin", "nvcc")):
@@ -41,13 +54,18 @@ def nvcc() -> str:
 class CudaLibrary:
     """One csrc/<name>.cu: its build, its loaded library, and the C
     functions it exports, each with its ctypes argument types. Every entry
-    returns the launch's cudaError_t (0 = ok)."""
+    returns the launch's cudaError_t (0 = ok) unless ``restypes`` names
+    another return type. ``compiler``, ``flags`` and ``ext`` build another
+    source the same way (the host library: g++ on a .cpp)."""
 
-    def __init__(self, name: str, functions: dict, link=()):
+    def __init__(self, name: str, functions: dict, link=(), restypes=None,
+                 compiler=nvcc, flags=NVCC_FLAGS, ext=".cu"):
         self.name = name
-        self.source = os.path.join(CSRC, f"{name}.cu")
+        self.source = os.path.join(CSRC, f"{name}{ext}")
         self.functions = functions
+        self.restypes = dict(restypes or {})
         self.link = tuple(link)  # libraries, placed after the source
+        self.compiler, self.flags = compiler, tuple(flags)
         self.lib = None
         self.build_seconds = None  # None: the cached library was used
         self.build_log = ""
@@ -55,7 +73,7 @@ class CudaLibrary:
     def path(self) -> str:
         with open(self.source, "rb") as fh:
             h = hashlib.sha256(fh.read() + " ".join(
-                (*NVCC_FLAGS, *self.link)).encode())
+                (*self.flags, *self.link)).encode())
         return os.path.join(BUILD_DIR, f"{self.name}_{h.hexdigest()[:16]}.so")
 
     def start_build(self):
@@ -66,8 +84,8 @@ class CudaLibrary:
             return None
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.Popen([nvcc(), *NVCC_FLAGS, "-o", tmp, self.source,
-                                 *self.link],
+        proc = subprocess.Popen([self.compiler(), *self.flags, "-o", tmp,
+                                 self.source, *self.link],
                                 stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         return proc, tmp, path, time.perf_counter()
@@ -78,8 +96,9 @@ class CudaLibrary:
         proc, tmp, path, t0 = started
         self.build_log = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc {self.source} failed "
-                               f"({proc.returncode}):\n{self.build_log}")
+            raise RuntimeError(f"{os.path.basename(proc.args[0])} "
+                               f"{self.source} failed ({proc.returncode}):"
+                               f"\n{self.build_log}")
         os.replace(tmp, path)
         self.build_seconds = time.perf_counter() - t0
         return path
@@ -91,7 +110,7 @@ class CudaLibrary:
             for fn_name, argtypes in self.functions.items():
                 fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
+                fn.restype = self.restypes.get(fn_name, ctypes.c_int)
             self.lib = lib
         return self.lib
 

@@ -31,9 +31,8 @@ import numpy as np
 import torch
 
 from m3d_torch.anchors import normalized_pyramid_anchors
-from m3d_torch.checkpoints import (BestAndLatest, load_params,
-                                   params_from_jax, params_to_jax,
-                                   restore_by_name)
+from m3d_torch.checkpoints import (BestAndLatest, params_to_jax,
+                                   restore_weights)
 from m3d_torch.config import unported_training
 from m3d_torch.data.datasets import ToyDataset, ToyHeadDataset
 from m3d_torch.data.generators import (HeadGenerator, RPNGenerator,
@@ -105,8 +104,7 @@ class HeadTrainer:
             paths.append(best)
         for path in paths:
             if path:
-                tree, _ = load_params(path)
-                stats = restore_by_name(self.model, params_from_jax(tree))
+                stats = restore_weights(self.model, path)
                 print(f"[HeadTrainer] restored {path}: {stats}")
         return self.model
 

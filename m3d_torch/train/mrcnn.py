@@ -39,8 +39,7 @@ import numpy as np
 import torch
 
 from m3d_torch.anchors import normalized_pyramid_anchors
-from m3d_torch.checkpoints import (autoconfigure_heads, load_params,
-                                   params_from_jax, restore_by_name)
+from m3d_torch.checkpoints import autoconfigure_heads, restore_weights
 from m3d_torch.config import resolve_auto_confidence, unported_training
 from m3d_torch.data.datasets import ToyDataset
 from m3d_torch.data.generators import MrcnnGenerator
@@ -112,9 +111,7 @@ class MrcnnTrainer:
                      getattr(cfg, "HEAD_WEIGHTS", None),
                      getattr(cfg, "MASK_WEIGHTS", None)):
             if path:
-                tree, _ = load_params(path)
-                stats = restore_by_name(model, params_from_jax(tree))
-                del tree
+                stats = restore_weights(model, path)
                 print(f"[MrcnnTrainer] restored {path}: {stats}")
         return model
 

@@ -32,9 +32,8 @@ import numpy as np
 import torch
 
 from m3d_torch.anchors import normalized_pyramid_anchors
-from m3d_torch.checkpoints import (BestAndLatest, load_params,
-                                   params_from_jax, params_to_jax,
-                                   restore_by_name)
+from m3d_torch.checkpoints import (BestAndLatest, params_to_jax,
+                                   restore_weights)
 from m3d_torch.config import unported_training
 from m3d_torch.data.datasets import ToyDataset
 from m3d_torch.data.generators import (RPNGenerator, prefetch_to_device,
@@ -97,8 +96,7 @@ class RPNTrainer:
         init_params(self.model, int(getattr(self.config, "SEED", 0)))
         weights = getattr(self.config, "RPN_WEIGHTS", None)
         if weights:
-            tree, _ = load_params(weights)
-            stats = restore_by_name(self.model, params_from_jax(tree))
+            stats = restore_weights(self.model, weights)
             print(f"[RPNTrainer] restored {weights}: {stats}")
         return self.model
 
@@ -144,12 +142,34 @@ class RPNTrainer:
     def train(self):
         """One pass of the generator per epoch (len(gen) steps), the epoch
         evaluation on up to EVAL_IMAGES test volumes. Returns (model,
-        history of epoch metrics)."""
+        history of epoch metrics).
+
+        AUTO_TUNE_RPN first runs ``autotune_rpn`` on the training split
+        (printing the patch and writing WEIGHT_DIR/autotune_patch.json);
+        with AUTO_TUNE_APPLY the patch is set on the config and the model
+        (whose RPN head width follows the ratio count) and the anchors are
+        rebuilt before the generator, so RPN_WEIGHTS leaves whose shape
+        changed are sliced or skipped, as in JAX."""
         cfg = self.config
         why = unported_training("RPN_TRAINING", cfg)
         if why:
             raise NotImplementedError(why)
         train_ds, test_ds = self.prepare_datasets()
+        if getattr(cfg, "AUTO_TUNE_RPN", False):
+            from m3d_torch.train.autotune import autotune_rpn
+
+            patch = autotune_rpn(train_ds, cfg)
+            if patch and getattr(cfg, "AUTO_TUNE_APPLY", False):
+                for k, v in patch.items():
+                    setattr(cfg, k, v)
+                self.model = MaskRCNN.from_config(
+                    cfg, mode="training", device=self.device).eval()
+                self.anchors = normalized_pyramid_anchors(
+                    cfg,
+                    voxel_z_over_y=float(getattr(cfg, "VOXEL_Z_OVER_Y", 1.0)),
+                )
+                print(f"[AutoTuneRPN] applied patch; anchors rebuilt "
+                      f"({self.anchors.shape[0]} anchors)")
         gen = RPNGenerator(train_ds, cfg, mode="training",
                            seed=int(getattr(cfg, "SEED", 0)),
                            telemetry=self.telemetry)

@@ -1,12 +1,14 @@
-"""Multi-page TIFF volume IO in numpy (port of m3d/utils/tiffio.py).
+"""Multi-page TIFF volume IO (port of m3d/utils/tiffio.py).
 
 Volumes are stored as multi-page TIFFs with axis 0 as the page axis. The
-reader parses, in numpy, what the JAX package's native reader parses
-(m3d/native/src/m3d_native.cpp): uncompressed, little-endian, 8- or 16-bit
-unsigned grayscale pages in strips. Any other file goes to PIL, as in the
-JAX package; without PIL it raises ``UnsupportedTiff`` naming the tag it
-cannot handle. The writer needs no PIL: one strip per page, uncompressed,
-the layout the JAX package's PIL writer gives with ``compression=None``.
+reader tries the native library's decoder first (``m3d_torch.native.
+read_tiff_volume``, as the JAX package does; a failed build raises), which
+parses uncompressed, little-endian, 8- or 16-bit unsigned grayscale pages
+in strips. A file it does not parse goes to the numpy reader here (the
+native decoder's plain version), then to PIL; without PIL it raises
+``UnsupportedTiff`` naming the tag it cannot handle. The writer needs no
+PIL: one strip per page, uncompressed, the layout the JAX package's PIL
+writer gives with ``compression=None``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import struct
 
 import numpy as np
+
+from m3d_torch import native
 
 _DTYPE_BITS = {np.dtype(np.uint8): 8, np.dtype(np.uint16): 16}
 _TAG_NAMES = {256: "ImageWidth", 257: "ImageLength", 258: "BitsPerSample",
@@ -138,8 +142,12 @@ def _read_pil(path: str) -> np.ndarray:
 
 
 def imread_volume(path: str) -> np.ndarray:
-    """Read a multi-page TIFF as a 3-D array (pages on axis 0): the numpy
-    reader first, then PIL for formats it does not cover."""
+    """Read a multi-page TIFF as a 3-D array (pages on axis 0): the native
+    decoder first, then the numpy reader and PIL for formats it does not
+    cover."""
+    arr = native.read_tiff_volume(path)
+    if arr is not None:
+        return arr
     try:
         return _read_numpy(path)
     except UnsupportedTiff as err:

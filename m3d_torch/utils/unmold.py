@@ -9,7 +9,8 @@ Parity with the reference (core/models.py:7198-7419):
 - ``unmold_detections``: denormalize boxes, drop zero-padding, unmold each
   mask.
 - ``postprocess_detections``: the evaluation cascade (confidence, box
-  volume, host greedy NMS with ``nms_3d_numpy``).
+  volume, host greedy NMS with the native library's ``nms_3d_host``, whose
+  plain version is ``nms_3d_numpy``).
 - ``instances_to_label_volume``: the label TIFF's volume.
 """
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 import numpy as np
 from scipy import ndimage
 
-from m3d_torch.ops.nms3d import nms_3d_numpy
+from m3d_torch import native
 
 
 def _otsu_threshold(values: np.ndarray) -> float:
@@ -158,9 +159,10 @@ def postprocess_detections(detections, mrcnn_masks, padded_shape,
     masks = masks[..., keep]
 
     if len(scores):
-        nms_keep = nms_3d_numpy(boxes_px.astype(np.float32),
-                                scores.astype(np.float32),
-                                float(nms_threshold), int(max_instances))
+        nms_keep = native.nms_3d_host(boxes_px.astype(np.float32),
+                                      scores.astype(np.float32),
+                                      float(nms_threshold),
+                                      int(max_instances))
         boxes_px, class_ids, scores = (
             boxes_px[nms_keep], class_ids[nms_keep], scores[nms_keep])
         masks = masks[..., nms_keep]

@@ -41,6 +41,7 @@ from m3d_torch.train.rpn import RPNTrainer
 from m3d_torch.utils import metrics as T_met
 from m3d_torch.utils import tiffio as T_tiff
 from m3d_torch.utils import unmold as T_un
+from m3d_torch.utils.h5read import UnsupportedHdf5
 from test_torch_models import TINY, randomize
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -215,7 +216,7 @@ def test_head_introspection_matches_jax(tiny_ckpt, tmp_path):
     assert got == J_ckpt.autoconfigure_heads(jc, [None, missing, path])
     assert jc.to_dict() == tc.to_dict()
     assert tc.FPN_CLASSIF_FC_LAYERS_SIZE == 64 and tc.HEAD_CONV_CHANNEL == 32
-    with pytest.raises(NotImplementedError, match="h5"):
+    with pytest.raises(UnsupportedHdf5, match="not an HDF5 file"):
         T_ckpt.infer_head_params(h5)
 
 

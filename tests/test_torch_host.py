@@ -219,14 +219,15 @@ def test_restore_by_name_counts():
 
 def test_port_imports_without_jax_flax_msgpack_pandas(tmp_path):
     """m3d_torch and chip_smoke import in a Python where jax, flax, msgpack,
-    pandas, PIL and m3d cannot be imported, and there write and read back
-    one synthetic dataset volume on the numpy TIFF path."""
+    pandas, PIL, h5py and m3d cannot be imported, and there write and read
+    back one synthetic dataset volume (the native TIFF decoder), read the
+    reference's Keras keras231_tiny.h5 and an MRC volume."""
     code = (
         "import sys\n"
         "class Block:\n"
         "    def find_spec(self, name, path=None, target=None):\n"
         "        if name.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msgpack',"
-        " 'pandas', 'm3d', 'PIL'):\n"
+        " 'pandas', 'm3d', 'PIL', 'h5py'):\n"
         "            raise ImportError('blocked: ' + name)\n"
         "sys.meta_path.insert(0, Block())\n"
         "import m3d_torch.models.inference, m3d_torch.checkpoints\n"
@@ -242,7 +243,9 @@ def test_port_imports_without_jax_flax_msgpack_pandas(tmp_path):
         "import m3d_torch.utils.minimask, m3d_torch.data.rpn_targets\n"
         "import m3d_torch.data.augment, m3d_torch.train.optim\n"
         "import m3d_torch.train.telemetry, m3d_torch.train.profiling\n"
-        "import m3d_torch.train.head\n"
+        "import m3d_torch.train.head, m3d_torch.train.autotune\n"
+        "import m3d_torch.native, m3d_torch.utils.h5read\n"
+        "import m3d_torch.utils.h5_import, m3d_torch.utils.mrcio\n"
         "from m3d_torch.data.synthetic import generate_experiment\n"
         "from m3d_torch.data.datasets import ToyDataset\n"
         "from m3d_torch.utils.tiffio import imread_volume\n"
@@ -253,7 +256,14 @@ def test_port_imports_without_jax_flax_msgpack_pandas(tmp_path):
         "ds = ToyDataset()\n"
         "ds.add_image('dataset', 0, d + '/images/000001.tiff')\n"
         "assert ds.load_image(0).shape == (64, 64, 8, 1)\n"
-        "assert 'PIL' not in sys.modules\n"
+        "from m3d_torch.checkpoints import load_params\n"
+        "tree, meta = load_params('tests/fixtures/keras231_tiny.h5')\n"
+        "assert meta == {'format': 'keras_h5'}\n"
+        "assert tree['params']['conv1']['kernel'].shape == (7, 7, 7, 1, 64)\n"
+        "from m3d_torch.utils.mrcio import read_mrc, write_mrc\n"
+        "write_mrc(d + '/v.mrc', vol)\n"
+        "assert (read_mrc(d + '/v.mrc') == vol).all()\n"
+        "assert 'PIL' not in sys.modules and 'h5py' not in sys.modules\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],

@@ -18,7 +18,6 @@ import optax
 import pytest
 import torch
 
-from m3d import native
 from m3d.config import Config
 from m3d.train import checkpoints as J_ckpt
 from m3d.train import optim as J_opt
@@ -28,6 +27,7 @@ from m3d_torch.config import Config as TConfig
 from m3d_torch.data.generators import to_device
 from m3d_torch.train import mrcnn as T_mrcnn
 from test_torch_models import TINY, randomize
+from test_torch_native import jax_native
 from test_torch_train import _leaves
 from test_torch_train_cli import (GRAB, STEP, _assert_grads, _assert_params,
                                   _run, _write_config,
@@ -86,7 +86,7 @@ def mrcnn_batch(data_dir, kw, monkeypatch, ids=(0, 1)):
     from m3d_torch.data.datasets import ToyDataset as TToy
     from m3d_torch.data.generators import MrcnnGenerator as TGen
 
-    monkeypatch.setattr(native, "available", lambda: False)
+    jax_native()
     gens = []
     for toy, gen, conf in ((JToy, JGen, Config), (TToy, TGen, TConfig)):
         ds = toy()
@@ -120,7 +120,7 @@ def test_mrcnn_generator_training_batch(train_data, monkeypatch):
     from m3d_torch.data.datasets import ToyDataset as TToy
     from m3d_torch.data.generators import MrcnnGenerator as TGen
 
-    monkeypatch.setattr(native, "available", lambda: False)
+    jax_native()
     kw = dict(MRCNN, DATA_DIR=train_data, AUGMENT=False)
     out = []
     for toy, gen, conf in ((JToy, JGen, Config), (TToy, TGen, TConfig)):

@@ -20,7 +20,6 @@ import pytest
 import torch
 from flax import serialization, traverse_util
 
-from m3d import native
 from m3d.config import Config
 from m3d.data import augment as J_aug
 from m3d.data import rpn_targets as J_rpn
@@ -49,6 +48,7 @@ from m3d_torch.train.head import _is_frozen_for_e2e
 from m3d_torch.train.telemetry import Telemetry
 from m3d_torch.utils.minimask import minimize_mask
 from test_torch_models import TINY, randomize
+from test_torch_native import jax_native
 
 T = torch.from_numpy
 
@@ -232,10 +232,10 @@ def test_detection_targets_match_jax(case):
 
 # RPN targets, augmentations -----------------------------------------------
 
-def test_build_rpn_targets_matches_jax(monkeypatch):
-    """Exact under one seed, telemetry fed alike; JAX's native IoU is
-    turned off so both packages take numpy's IoU matrix."""
-    monkeypatch.setattr(native, "available", lambda: False)
+def test_build_rpn_targets_matches_jax():
+    """Exact under one seed, telemetry fed alike; both packages take the
+    IoU matrix from their native libraries (the same bits)."""
+    jax_native()
     kw = dict(TINY, RPN_TRAIN_ANCHORS_PER_IMAGE=64, RPN_POSITIVE_IOU=0.3,
               RPN_NEGATIVE_IOU=0.1, TELEMETRY_SAMPLE=1.0)
     from m3d.anchors import normalized_pyramid_anchors

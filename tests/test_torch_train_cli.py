@@ -3,8 +3,9 @@ tests/test_torch_models.py on the CPU (float32): one step of each task
 against JAX's own train step on the same weights and the same generator
 batch (gradients, metrics, parameters after the optimiser), then
 ``python -m m3d_torch`` for RPN_TRAINING and e2e HEAD_TRAINING, one epoch of
-two steps each, with their checkpoints read back by JAX, and the training
-options not ported yet refused before anything is written.
+two steps each, with their checkpoints read back by JAX, AUTO_TUNE_RPN and
+Keras ``.h5`` weights run, and the one training option not ported yet
+(GPU_COUNT > 1) refused before anything is written.
 """
 
 import contextlib
@@ -21,7 +22,6 @@ import optax
 import pytest
 import torch
 
-from m3d import native
 from m3d.config import Config
 from m3d.train import checkpoints as J_ckpt
 from m3d.train import optim as J_opt
@@ -33,6 +33,7 @@ from m3d_torch.data import synthetic as T_syn
 from m3d_torch.train import optim as T_opt
 from m3d_torch.train.head import _is_frozen_for_e2e
 from test_torch_models import TINY, randomize
+from test_torch_native import jax_native
 from test_torch_train import _leaves, jax_tiny  # noqa: F401 (fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -68,7 +69,7 @@ def _first_batches(data_dir, mode, monkeypatch):
     from m3d_torch.data.datasets import ToyDataset as TToy
     from m3d_torch.data.generators import RPNGenerator as TGen
 
-    monkeypatch.setattr(native, "available", lambda: False)
+    jax_native()
     kw = dict(STEP, DATA_DIR=data_dir, MODE=mode)
     out = []
     for toy, gen, conf in ((JToy, JGen, Config), (TToy, TGen, TConfig)):
@@ -309,12 +310,12 @@ def test_cli_e2e_head_training_trains_heads_only(train_data, jax_tiny,
 
 
 UNPORTED = {
-    "auto_tune_rpn": ("RPN_TRAINING", dict(MODE="training",
-                                           AUTO_TUNE_RPN=True)),
     "gpu_count_2": ("HEAD_TRAINING", dict(MODE="training_head_e2e",
                                           GPU_COUNT=2)),
-    "h5_weights": ("HEAD_TRAINING", dict(MODE="training_head_e2e",
-                                         RPN_WEIGHTS="x.h5")),
+    "gpu_count_2_rpn": ("RPN_TRAINING", dict(MODE="training", GPU_COUNT=2,
+                                             AUTO_TUNE_RPN=True)),
+    "gpu_count_4_mrcnn": ("MRCNN_TRAINING", dict(MODE="training",
+                                                 GPU_COUNT=4)),
 }
 
 
@@ -330,14 +331,56 @@ def test_cli_training_options_not_ported(case, tmp_path):
     assert not os.path.exists(os.path.dirname(wdir))
 
 
+H5_WEIGHTS = os.path.join(REPO, "tests", "fixtures", "keras231_tiny.h5")
+OPTIONS = {
+    "auto_tune_rpn": ("RPN_TRAINING", dict(MODE="training",
+                                           AUTO_TUNE_RPN=True)),
+    "h5_weights": ("HEAD_TRAINING", dict(MODE="training_head_e2e",
+                                         RPN_WEIGHTS=H5_WEIGHTS)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(OPTIONS))
+def test_cli_training_options_run(case, train_data, tmp_path):
+    """The options refused before this slice now run one epoch through the
+    CLI: AUTO_TUNE_RPN on RPN_TRAINING (the patch written as JAX writes
+    it, nothing applied without AUTO_TUNE_APPLY),
+    and e2e HEAD_TRAINING from the reference's Keras keras231_tiny.h5
+    (every one of its 92 weights restored, its trunk kept frozen)."""
+    task, keys = OPTIONS[case]
+    path, wdir = _write_config(tmp_path, train_data, case, **keys)
+    trainer, text = _run(task, path)
+    (epoch,) = trainer.history
+    assert np.isfinite(epoch["loss"])
+    assert sorted(os.listdir(wdir)) == sorted(
+        CKPT_FILES + (["autotune_patch.json"] if case == "auto_tune_rpn"
+                      else []))
+    if case == "auto_tune_rpn":
+        from test_torch_autotune import check_autotune_run
+
+        with open(path) as f:
+            written = json.load(f)
+        check_autotune_run(trainer, text, written, os.path.dirname(wdir),
+                           train_data, tmp_path)
+        return
+    (line,) = [ln for ln in text.splitlines() if "] restored " in ln]
+    stats = json.loads(line.split(": ", 1)[1].replace("'", '"'))
+    assert stats["loaded"] == 92 and stats["skipped"] == 0, line
+    want = T_ckpt.params_from_jax(T_ckpt.load_params(H5_WEIGHTS)[0])
+    saved = T_ckpt.params_from_jax(T_ckpt.load_params(
+        os.path.join(wdir, "latest.msgpack"))[0])
+    assert torch.equal(saved["resnet.conv1.weight"],
+                       want["conv1.weight"])
+
+
 def test_cli_training_head_only_exits_one(tmp_path):
     """``python -m m3d_torch`` itself: a training option not ported yet
-    (AUTO_TUNE_RPN on RPN_TRAINING) exits 1 and writes nothing; with no
+    (GPU_COUNT > 1 on RPN_TRAINING) exits 1 and writes nothing; with no
     card and no --device cpu RPN_TRAINING exits non-zero and writes
     nothing."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     path, wdir = _write_config(tmp_path, str(tmp_path / "no_data"), "out",
-                               MODE="training", AUTO_TUNE_RPN=True)
+                               MODE="training", GPU_COUNT=2)
     res = subprocess.run(
         [sys.executable, "-m", "m3d_torch", "--task", "RPN_TRAINING",
          "--config_path", path, "--device", "cpu"], cwd=REPO, env=env,
