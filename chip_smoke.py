@@ -48,6 +48,24 @@ seconds:
               kernel's / plain / library ms beside its bound, all timed
               with CUDA events; the adaptive classifier chunk's plain
               gather + conv1 beside the fused kernel on the same rows
+  serve       m3d_torch.serve on the tracked checkpoint at 128^3: an
+              adaptive bundle (default chunks) and a monolithic one (chunks
+              0) at B = 4, each exported with torch.export, loaded and run
+              through ServingBundle.predict on the bench volumes: export,
+              load and first-predict seconds, graph.pt2 bytes, the graph's
+              ms beside in-process inference (CUDA events); outputs held to
+              in-process adaptive_inference / MaskRCNN.forward
+              (detections_valid equal, boxes within 1e-3, masks within one
+              bf16 rounding), recall >= 0.7, #1 launched by the adaptive
+              bundle, #2, #3 and #4 by the monolithic one; one call of
+              each graph and of its in-process twin under torch.profiler
+              (host syncs and scalar reads, ATen ops and host us per op,
+              kernels launched, device busy and idle ms); then
+              export_bucketed at B = 1 over 128^3 and 100x120x60 and four
+              segment_volume requests, two per bucket: ms per request,
+              instances found, each label volume held to the in-process
+              postprocess of the padded volume, whose compact-kernel calls
+              (the bucket shapes at B = 1) are held to the plain version
   eval        writes the bench volumes (seeds 1000-1003) as an on-disk
               dataset with the port's generator into a temporary directory,
               all four the test split, and runs
@@ -131,10 +149,13 @@ seconds:
               with its sum; the fixtures' tiny model restored from
               keras231_tiny.h5 on the card (all 92 weights, none skipped)
               through adaptive_inference on seeded 64x64x8 volumes, every
-              compact-kernel launch held against its plain version; then
-              MRCNN_EVALUATION and RPN_EVALUATION through the CLI with
-              keras231_tiny.h5 as weights on two volumes written here:
-              every image evaluated, every artifact written
+              compact-kernel launch held against its plain version, and
+              through MaskRCNN.forward: at C = 32 every classifier row
+              takes #4 (no #2), each #4 and #3 launch held against its
+              plain version; then MRCNN_EVALUATION (chunks 0: #4, not #2)
+              and RPN_EVALUATION through the CLI with keras231_tiny.h5 as
+              weights on two volumes written here: every image evaluated,
+              every artifact written
 Each training phase prints its step ms (CUDA events), the host ms to take
 each batch, the device's idle share, the peak memory and its wall time.
 
@@ -224,10 +245,18 @@ H5_TINY = dict(IMAGE_SIZE=64, IMAGE_DEPTH=8, NUM_CLASSES=2,
                PRE_NMS_LIMIT=512, POST_NMS_ROIS_INFERENCE=64,
                DETECTION_MAX_INSTANCES=8, DETECTION_MIN_CONFIDENCE=0.0)
 H5_IMAGES, H5_SEED = 2, 3000  # 64 x 64 x 8 volumes of the h5 phase
-# The fused kernel (#2) needs C % 64 == 0 and the fixtures' pyramid is 32
-# wide, so the h5 phase runs the classifier chunked (the plain gather) and
-# the mask stage chunked (#1) rather than monolithically (ROADMAP.md §3).
+# The h5 phase's adaptive run (#1 on the mask stage). Its monolithic runs
+# take no chunks: at C = 32 the classifier's rows all take #4 and conv3d_fc,
+# as #2 needs C % 64 == 0.
 H5_CHUNKS = dict(CLASSIFIER_CHUNK=64, MASK_CHUNK=8)
+# serve: the router's raw volume shapes (buckets 128^3 and 128x128x64), two
+# requests each; the bundles held to in-process inference (detections_valid
+# equal, boxes within SERVE_BOX_TOL, masks within KERNEL_TOL * max: one bf16
+# rounding) and the router's label volumes to the in-process postprocess
+# (at most SERVE_LABEL_TOL of the voxels differ, the same instance count).
+SERVE_SHAPES = ((SIZE, SIZE, SIZE), (100, 120, 60))
+SERVE_BOX_TOL = 1e-3
+SERVE_LABEL_TOL = 1e-3
 
 T0 = time.perf_counter()
 
@@ -261,6 +290,90 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+              "cudaEventSynchronize")
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+def _union_us(spans) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, reach = 0.0, None
+    for s, e in sorted(spans):
+        if reach is None or s > reach:
+            total, reach = total + e - s, e
+        elif e > reach:
+            total, reach = total + e - reach, e
+    return total
+
+
+def host_profile(fn) -> dict:
+    """One call of ``fn`` (warmed up) under ``torch.profiler`` with CPU and
+    CUDA activity, read within the call's span: the host's stream
+    synchronisations and reads of a device value
+    (``aten::_local_scalar_dense``), the ATen ops it dispatched at top
+    level, the host ms spent outside waits per op, the ms before the first
+    op (argument handling), the kernels launched, and the device's busy and
+    idle ms. Device numbers are None where the profiler saw no device
+    activity. The profiler's own cost is inside every host number."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function("host_profile_call"):
+            fn()
+            torch.cuda.synchronize()
+    kinds = torch.autograd.DeviceType
+    events = list(prof.events())
+    call = next(e for e in events if e.name == "host_profile_call"
+                and e.device_type == kinds.CPU)
+    lo, hi = call.time_range.start, call.time_range.end
+    cpu = [e for e in events if e.device_type == kinds.CPU
+           and lo <= e.time_range.start <= hi]
+    # Kernels, copies and sets; not the annotation's device-side span.
+    dev = [(max(e.time_range.start, lo), min(e.time_range.end, hi))
+           for e in events
+           if e.device_type == kinds.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and e.name != "host_profile_call"
+           and e.time_range.end > lo and e.time_range.start < hi]
+
+    def top_level(e):
+        p = e.cpu_parent
+        while p is not None:
+            if p.name.startswith("aten::"):
+                return False
+            p = p.cpu_parent
+        return True
+
+    ops = [e for e in cpu if e.name.startswith("aten::") and top_level(e)]
+    syncs = sorted((e for e in cpu if e.name in SYNC_CALLS),
+                   key=lambda e: e.time_range.start)
+    # The closing synchronize, which waits for the call's device work, is
+    # not one of the call's; its wait is.
+    closing = 1 if syncs and syncs[-1].name == "cudaDeviceSynchronize" \
+        else 0
+    wait_us = _union_us([(e.time_range.start, e.time_range.end)
+                         for e in syncs])
+    wall_us = hi - lo
+    busy_us = _union_us(dev) if dev else None
+    return {
+        "wall_ms": wall_us / 1e3,
+        "syncs": len(syncs) - closing,
+        "scalar_reads": sum(e.name == "aten::_local_scalar_dense"
+                            for e in cpu),
+        "aten_ops": len(ops),
+        "host_us_per_op": (wall_us - wait_us) / max(len(ops), 1),
+        "lead_in_ms": ((min(e.time_range.start for e in ops) - lo) / 1e3
+                       if ops else None),
+        "kernel_launches": sum(e.name in LAUNCH_CALLS for e in cpu),
+        "device_busy_ms": None if busy_us is None else busy_us / 1e3,
+        "device_idle_ms": (None if busy_us is None
+                           else (wall_us - busy_us) / 1e3),
+    }
 
 
 def bound(nbytes: float, f32_ops: float = 0.0, bf16_ops: float = 0.0):
@@ -2035,6 +2148,31 @@ def h5_run(here: str, tmp: str, smi: str, errs: dict, dev) -> dict:
         spy.restore()
     adaptive = launch_counts()
     calls = [a for a in spy.calls["roialign_compact"] if a[0].shape[0]]
+    spy_m = Spy()
+    reset_counts()
+    try:
+        out_m = model(image, meta, anchors)
+        torch.cuda.synchronize()
+    finally:
+        spy_m.restore()
+    forward = launch_counts()
+    if forward["roialign_slab"] < 1 or forward["roialign_fc (kron)"] or \
+            forward["roialign_padded"] < 1 or \
+            len(spy_m.calls["roialign_slab"]) != forward["roialign_slab"]:
+        raise AssertionError(f"h5 tiny model forward at C = 32: kernel "
+                             f"launches {forward} (#4 and #3, not #2)")
+    if not all(torch.isfinite(out_m[k].float()).all() for k in
+               ("detections", "mrcnn_masks", "mrcnn_probs")):
+        raise AssertionError("h5 tiny model forward: non-finite outputs")
+    for i, args in enumerate(spy_m.calls["roialign_slab"]):
+        errs["roialign_slab"].append(compare_slab(
+            args, f"h5 tiny model forward, C = 32 classifier rows, call {i}"))
+    for i, args in enumerate(spy_m.calls["roialign_padded"]):
+        errs["roialign_padded"].append(compare_padded(
+            args, f"h5 tiny model forward, mask stage, call {i}"))
+    phase("h5", f"MaskRCNN.forward of the C = 32 model: every classifier "
+          f"row on #4 + conv3d_fc (no #2), kernel launches {forward}, each "
+          f"held against its plain version")
     if adaptive["roialign_compact"] < 1 or \
             len(calls) != adaptive["roialign_compact"]:
         raise AssertionError(f"h5 tiny model: compact kernel launches "
@@ -2058,18 +2196,36 @@ def h5_run(here: str, tmp: str, smi: str, errs: dict, dev) -> dict:
     for task in ("MRCNN_EVALUATION", "RPN_EVALUATION"):
         out_dir = os.path.join(tmp, f"out_h5_{task.lower()}")
         path = os.path.join(tmp, f"h5_{task.lower()}.json")
+        # MRCNN_EVALUATION monolithic (chunks 0): the C = 32 classifier on
+        # #4, each #4 launch held against its plain version.
+        chunks = (dict(CLASSIFIER_CHUNK=0, MASK_CHUNK=0)
+                  if task == "MRCNN_EVALUATION" else H5_CHUNKS)
         with open(path, "w") as f:
-            json.dump(dict(H5_TINY, **H5_CHUNKS, DATA_DIR=data,
+            json.dump(dict(H5_TINY, **chunks, DATA_DIR=data,
                            OUTPUT_DIR=out_dir,
                            WEIGHT_DIR=os.path.join(out_dir, "weights"),
                            RPN_WEIGHTS=weights, HEAD_WEIGHTS=weights,
                            EVALUATION_STEPS=H5_IMAGES), f)
+        spy = Spy()
         reset_counts()
         t = time.perf_counter()
-        res = cli.main(["--task", task, "--config_path", path])
-        torch.cuda.synchronize()
+        try:
+            res = cli.main(["--task", task, "--config_path", path])
+            torch.cuda.synchronize()
+        finally:
+            spy.restore()
         evals[task] = launch_counts()
         if task == "MRCNN_EVALUATION":
+            if evals[task]["roialign_slab"] < 1 or \
+                    evals[task]["roialign_fc (kron)"]:
+                raise AssertionError(f"h5 {task} with chunks 0 at C = 32: "
+                                     f"kernel launches {evals[task]}")
+            for i, args in enumerate(spy.calls["roialign_slab"]):
+                errs["roialign_slab"].append(compare_slab(
+                    args, f"h5 {task} chunks 0, C = 32, call {i}"))
+            for i, args in enumerate(spy.calls["roialign_padded"]):
+                errs["roialign_padded"].append(compare_padded(
+                    args, f"h5 {task} chunks 0, mask stage, call {i}"))
             names = [str(i).zfill(6) for i in range(H5_IMAGES)]
             want = [f"{n}.{ext}" for n in names for ext in ("tiff", "csv")]
             want.append("evaluation_summary.json")
@@ -2088,7 +2244,223 @@ def h5_run(here: str, tmp: str, smi: str, errs: dict, dev) -> dict:
         phase("h5", f"{task} with keras231_tiny.h5 weights: "
               f"{time.perf_counter() - t:.2f}s, {json.dumps(shown)} (no "
               f"floor: random weights), kernel launches {evals[task]}")
-    return {"adaptive": adaptive, **evals}
+    return {"adaptive": adaptive, "forward": forward, **evals}
+
+
+def held_to(got: dict, ref: dict, label: str) -> dict:
+    """A bundle's outputs (numpy) against in-process inference (tensors):
+    detections_valid equal, boxes within SERVE_BOX_TOL, masks within
+    KERNEL_TOL * max|ref|, everything finite. Returns the errors."""
+    valid = ref["detections_valid"].cpu().numpy()
+    if not np.array_equal(got["detections_valid"], valid):
+        raise AssertionError(f"{label}: detections_valid differ: "
+                             f"{got['detections_valid'].sum(1)} vs "
+                             f"{valid.sum(1)}")
+    box = np.abs(got["detections"][..., :6] - ref["detections"][..., :6]
+                 .float().cpu().numpy()).max()
+    mref = ref["mrcnn_masks"].float().cpu().numpy()
+    mask = np.abs(got["mrcnn_masks"] - mref).max()
+    if not all(np.isfinite(got[k]).all() for k in got):
+        raise AssertionError(f"{label}: non-finite outputs")
+    if box > SERVE_BOX_TOL or mask > KERNEL_TOL * np.abs(mref).max():
+        raise AssertionError(f"{label}: box err {box} (tol {SERVE_BOX_TOL})"
+                             f", mask err {mask} (tol {KERNEL_TOL} * "
+                             f"{np.abs(mref).max()})")
+    return {"box_err": float(box), "mask_err": float(mask)}
+
+
+def serve_run(smi: str, cfg, model, image, meta_b, anchors, gt_boxes, ref,
+              ref_m, dev, errs: dict) -> dict:
+    """m3d_torch.serve at the bench configuration: (a) an adaptive bundle
+    (default chunks) at B = 4, exported, loaded from its own files and held
+    to in-process adaptive inference ``ref`` (recall >= RECALL_FLOOR, #1
+    launched by predict); (b) a monolithic bundle (chunks 0: #2, #3, #4)
+    held to ``MaskRCNN.forward``'s ``ref_m``; (c) export_bucketed at B = 1
+    over SERVE_SHAPES and four segment_volume requests, two per bucket, each
+    label volume held to the in-process postprocess of the padded volume,
+    whose #1 calls (the bucket shapes at B = 1) are held to the plain
+    version, their errors added to ``errs``; (d) one call of each bundle's
+    graph and of its in-process twin under ``host_profile``. Returns each
+    path's kernel launches, timings and profiles."""
+    from m3d_torch import serve
+    from m3d_torch.anchors import (bucket_image_shape,
+                                   normalized_pyramid_anchors)
+    from m3d_torch.image_meta import compose_image_meta
+    from m3d_torch.models.inference import adaptive_inference, default_chunks
+    from m3d_torch.utils.metrics import detection_recall
+    from m3d_torch.utils.unmold import (instances_to_label_volume,
+                                        postprocess_detections)
+
+    state = model.state_dict()
+    image_np, meta_np = image.cpu().numpy(), meta_b.cpu().numpy()
+    res = {"launches": {}}
+    with tempfile.TemporaryDirectory(prefix="m3d_serve_") as tmp:
+        for name, conf, want in (
+                ("adaptive", cfg, ("roialign_compact",)),
+                ("monolithic", cfg.replace(CLASSIFIER_CHUNK=0, MASK_CHUNK=0),
+                 ("roialign_fc (kron)", "roialign_padded",
+                  "roialign_slab"))):
+            out_dir = os.path.join(tmp, name)
+            shared = name == "monolithic"
+            t = time.perf_counter()
+            manifest = serve.export_bundle(
+                conf, state, out_dir, batch=BATCH, device=dev,
+                weights_file=(os.path.join("..", "adaptive",
+                                           "weights.msgpack")
+                              if shared else None))
+            export_s = time.perf_counter() - t
+            graph_bytes = os.path.getsize(os.path.join(out_dir,
+                                                       "graph.pt2"))
+            t = time.perf_counter()
+            bundle = serve.ServingBundle.load(
+                out_dir, variables=state if shared else None, device=dev)
+            load_s = time.perf_counter() - t
+            reset_counts()
+            t = time.perf_counter()
+            got = bundle.predict(image_np, meta_np)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t
+            launches = launch_counts()
+            missing = [k for k in want if launches[k] < 1]
+            if missing or (shared and launches["roialign_compact"]) or (
+                    not shared and any(launches[k] for k in launches
+                                       if k not in want)):
+                raise AssertionError(f"serve {name} bundle: kernel launches "
+                                     f"{launches}, wanted {want}")
+            held = held_to(got, ref_m if shared else ref,
+                           f"serve {name} bundle")
+            n_gt, n_match, n_det = detection_recall(
+                got["detections"], got["detections_valid"], gt_boxes, SIZE)
+            recall = n_match / n_gt if n_gt else 0.0
+            if recall < RECALL_FLOOR:
+                raise AssertionError(f"serve {name} bundle: recall "
+                                     f"{recall:.4f} < {RECALL_FLOOR}")
+            bundle.run(image, meta_b)
+            graph_ms = cuda_ms(lambda: bundle.run(image, meta_b), 3)
+            if shared:
+                def eager():
+                    return model(image, meta_b, anchors)
+            else:
+                chunks = default_chunks(model)
+
+                def eager():
+                    return adaptive_inference(
+                        model, image, meta_b, anchors,
+                        classifier_chunk=chunks[0], mask_chunk=chunks[1],
+                        device=dev)
+            inproc_ms = cuda_ms(eager, 3)
+            # Where the graph's time over the eager one goes: host reads,
+            # host dispatch per op, the device's idle time.
+            # A measurement only: a profiler that fails is reported, and
+            # fails no check.
+            prof = {}
+            for key, fn in (("graph", lambda: bundle.run(image, meta_b)),
+                            ("in_process", eager)):
+                try:
+                    prof[key] = host_profile(fn)
+                except Exception as exc:  # noqa: BLE001
+                    prof[key] = {"error": repr(exc)}
+            wall = []
+            for _ in range(3):
+                t = time.perf_counter()
+                bundle.predict(image_np, meta_np)
+                wall.append((time.perf_counter() - t) * 1e3)
+            res[name] = {"export_s": export_s, "load_s": load_s,
+                         "first_predict_s": first_s,
+                         "graph_pt2_bytes": graph_bytes,
+                         "graph_ms": graph_ms, "in_process_ms": inproc_ms,
+                         "predict_wall_ms": wall, "recall": recall,
+                         "profile": prof, **held}
+            res["launches"][f"serve {name} bundle"] = launches
+            phase("serve", f"{name} bundle (chunks {manifest['chunks']}, "
+                  f"B={BATCH}): export {export_s:.2f}s, graph.pt2 "
+                  f"{graph_bytes} bytes, load {load_s:.2f}s, first predict "
+                  f"{first_s:.2f}s; graph {graph_ms:.2f} ms vs in-process "
+                  f"{inproc_ms:.2f} ms (CUDA events, mean of 3), predict "
+                  f"with host copies {[round(w, 2) for w in wall]} ms; "
+                  f"recall {recall:.4f} ({n_match}/{n_gt}, {n_det} "
+                  f"detections), box err {held['box_err']:.3e}, mask err "
+                  f"{held['mask_err']:.3e}; kernel launches {launches}")
+            phase("serve", f"{name} bundle, one call under torch.profiler: "
+                  f"{json.dumps(prof)}")
+            del bundle, got
+
+        out_dir = os.path.join(tmp, "router")
+        t = time.perf_counter()
+        rman = serve.export_bucketed(cfg, state, out_dir, SERVE_SHAPES,
+                                     batch=1, device=dev)
+        export_s = time.perf_counter() - t
+        router = serve.ServingRouter.load(out_dir, device=dev)
+        chunks = default_chunks(model)
+        requests = []
+        reset_counts()
+        for i in range(4):
+            vol = image_np[i % len(image_np), ..., 0]
+            if i >= 2:
+                vol = vol[tuple(slice(0, n) for n in SERVE_SHAPES[1])]
+            t = time.perf_counter()
+            seg = router.segment_volume(vol, image_id=i)
+            torch.cuda.synchronize()
+            requests.append(((time.perf_counter() - t) * 1e3, vol, seg))
+        launches = launch_counts()
+        if launches["roialign_compact"] < 1:
+            raise AssertionError(f"serve router: kernel launches {launches}")
+        res["launches"]["serve router (4 requests)"] = launches
+        shown = []
+        for i, (ms, vol, seg) in enumerate(requests):
+            shape = bucket_image_shape(vol.shape)
+            padded = np.pad(vol, [(0, b - n) for b, n in zip(shape,
+                                                             vol.shape)])
+            meta = compose_image_meta(i, (*vol.shape, 1), (*shape, 1),
+                                      (0, 0, 0, *vol.shape), 1.0,
+                                      [1] * cfg.NUM_CLASSES)
+            bucket_anchors = torch.as_tensor(normalized_pyramid_anchors(
+                cfg, image_shape=(*shape, 1)), device=dev)
+            spy = Spy()
+            try:
+                ref_out = adaptive_inference(
+                    model, padded[None, ..., None], meta[None],
+                    bucket_anchors, classifier_chunk=chunks[0],
+                    mask_chunk=chunks[1], device=dev)
+            finally:
+                spy.restore()
+            rows = [a for a in spy.calls["roialign_compact"]
+                    if a[0].shape[0]]
+            if not rows:
+                raise AssertionError(f"serve router request {i}: the "
+                                     f"in-process twin launched no #1")
+            for args in rows:
+                errs["roialign_compact"].append(compare(
+                    args, f"serve router request {i}, bucket {shape}, "
+                    f"B = 1"))
+            _, _, scores, masks = postprocess_detections(
+                ref_out["detections"][0].float().cpu().numpy(),
+                ref_out["mrcnn_masks"][0].float().cpu().numpy(),
+                padded_shape=shape, original_shape=vol.shape,
+                min_confidence=float(cfg.DETECTION_MIN_CONFIDENCE),
+                min_roi_size=float(cfg.MIN_ROI_SIZE),
+                nms_threshold=float(cfg.DETECTION_NMS_THRESHOLD),
+                max_instances=int(cfg.DETECTION_MAX_INSTANCES))
+            labels = instances_to_label_volume(masks, scores)
+            differ = float((labels != seg["label_volume"]).mean())
+            if seg["label_volume"].shape != vol.shape or \
+                    len(scores) != len(seg["scores"]) or \
+                    differ > SERVE_LABEL_TOL:
+                raise AssertionError(
+                    f"serve router request {i}: {len(seg['scores'])} "
+                    f"instances vs {len(scores)} in process, "
+                    f"{differ:.2e} of the labels differ")
+            shown.append({"shape": list(vol.shape), "bucket": list(shape),
+                          "ms": ms, "instances": len(seg["scores"]),
+                          "labels_differ": differ})
+        res["router"] = {"export_s": export_s, "requests": shown}
+        phase("serve", f"router over {sorted(rman['buckets'])} (B=1, chunks "
+              f"{chunks}): export {export_s:.2f}s; requests "
+              f"{json.dumps(shown)} (the first of each bucket loads it); "
+              f"kernel launches {launches}")
+    print(f"[{smi}] serve: " + json.dumps(
+        {k: v for k, v in res.items() if k != "launches"}), flush=True)
+    return res
 
 
 def nms_check(dev) -> None:
@@ -2552,6 +2924,10 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{smi}] peak memory {peak:.2f} GiB", flush=True)
 
+    # serve: bundles exported, loaded and served on the card -------------
+    serve_res = serve_run(smi, cfg, model, image, meta_b, anchors, gt_boxes,
+                          out, out_m, dev, errs)
+
     # eval / rpn_eval: the evaluation tasks through the port's CLI --------
     from m3d_torch.data.synthetic import generate_experiment, split_dataset
 
@@ -2642,6 +3018,7 @@ def main() -> int:
                                  f"launched: {eval_launch} {mono_launch}")
     for k in kernels:
         name = k["name"]
+        k["max_abs_err"] = max(errs[name])  # the later phases' checks too
         k["eval_launches"] = {
             "eval": eval_launch.get(name, 0),
             "eval (CLASSIFIER_CHUNK 0, MASK_CHUNK 0)": mono_launch.get(
@@ -2656,7 +3033,9 @@ def main() -> int:
             "mrcnn_eval": mrcnn_eval_launch.get(name, 0),
             "train_bn": bn_launch.get(name, 0),
             "autotune": autotune["launches"].get(name, 0),
-            **{f"h5 {key}": n.get(name, 0) for key, n in h5_launch.items()}}
+            **{f"h5 {key}": n.get(name, 0) for key, n in h5_launch.items()},
+            **{key: n.get(name, 0)
+               for key, n in serve_res["launches"].items()}}
         if name == "roialign_padded":   # its calls on the training paths
             k["e2e_train_shapes"] = e2e_train["padded"]
             k["targeting_shapes"] = target["padded"]

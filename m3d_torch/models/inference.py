@@ -12,12 +12,17 @@ reads the live count on the host once per stage (one device->host sync for
 the classifier stage, one for the mask stage) and launches only the live
 chunks. The mask-stage ROIAlign kernel itself reads ``total`` on the device.
 A chunk of None/0 runs that stage monolithically (the model's
-``classify_rois`` / ``mask_rois``), with no host sync for it.
+``classify_rois`` / ``mask_rois``), with no host sync for it. Under
+``torch.export`` (m3d_torch/serve.py) the count cannot be read while
+tracing, so each chunk becomes a ``cond`` on ``chunk_start < total``
+(``chunked_roi_stage_traced``), as ``lax.cond`` in JAX: the same outputs,
+each gate read when the graph runs.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from m3d_torch.models.detection import refine_detections_batch
 from m3d_torch.models.mask_rcnn import MaskRCNN
@@ -82,6 +87,56 @@ def chunked_roi_stage(apply_chunk, rois, n_live: int, chunk: int):
     return tuple(stitched)
 
 
+def chunked_roi_stage_traced(apply_chunk, rois, total, chunk: int,
+                             out_shapes, operands=()):
+    """``chunked_roi_stage`` for export: every chunk under a ``cond`` on
+    ``i * chunk < total`` (``total`` a [] tensor, never read while tracing);
+    a dead chunk gives exact zeros. ``apply_chunk(x, *operands)`` must reach
+    every tensor it reads through its arguments: the branches are traced as
+    graphs of their own, which lift no captured tensor. ``out_shapes``
+    lists, per output of ``apply_chunk``, its (trailing shape after
+    [B, chunk], dtype), which the dead branch needs without running the
+    stage. Equal to the eager form for every ``total``: the eager form also
+    zero-fills chunks at or past the live count, and computes the whole
+    axis when it is one chunk.
+
+    The ``cond`` operator is called directly, not through ``torch.cond``,
+    whose dynamo pass traces each branch again at symbolic sizes (slower
+    than the trace itself, and wrong for one size expression: see
+    ``m3d_torch.ops.conv3d.same_padding``)."""
+    n = rois.shape[1]
+    chunk = int(chunk)
+    if chunk >= n:
+        return apply_chunk(rois, *operands)
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+    if pad:
+        rois = torch.cat(
+            [rois, rois.new_zeros((rois.shape[0], pad) + rois.shape[2:])], 1)
+    flat, spec = tree_flatten(tuple(operands))
+
+    def live(x, *flat):  # cond wants both branches' outputs in one layout
+        return tuple(t.contiguous() for t in
+                     apply_chunk(x, *tree_unflatten(list(flat), spec)))
+
+    def dead(x, *flat):
+        return tuple(torch.zeros((x.shape[0], chunk, *shape), dtype=dtype,
+                                 device=x.device)
+                     for shape, dtype in out_shapes)
+
+    outs = [torch.ops.higher_order.cond(
+        total > i * chunk, live, dead,
+        (rois[:, i * chunk:(i + 1) * chunk].contiguous(), *flat))
+        for i in range(n_chunks)]
+    return tuple(torch.cat(parts, dim=1)[:, :n] for parts in zip(*outs))
+
+
+def module_state(module) -> dict:
+    """A module's parameters and buffers by name, as ``functional_call``
+    takes them: the operands a traced branch that runs ``module`` needs."""
+    return {**dict(module.named_parameters()), **dict(module.named_buffers())}
+
+
 def _compact_perm(valid):
     """Valid-first stable permutation of the flattened [B, N] mask.
     Returns (perm, inv, total [] int32 tensor)."""
@@ -105,13 +160,24 @@ def compacted_classifier_stage(model: MaskRCNN, proposals, prop_valid,
     batch_f = batch_f.repeat_interleave(n)[perm]
     packed = torch.cat([boxes_f, batch_f.float()[:, None]], dim=-1)[None]
 
-    def cls_chunk(x):  # [1, chunk, 7]
+    def cls_chunk(x, image_meta, feats, *head):  # x: [1, chunk, 7]
         logits, probs, deltas = model.classify_rois_flat(
-            x[0, :, :6], x[0, :, 6].to(torch.int32), image_meta, mrcnn_feats)
+            x[0, :, :6], x[0, :, 6].to(torch.int32), image_meta, feats,
+            *head)
         return logits[None], probs[None], deltas[None]
 
-    # Host sync: the live proposal count decides which chunks launch.
-    outs = chunked_roi_stage(cls_chunk, packed, int(total), chunk)
+    if torch.compiler.is_exporting():
+        k = model.classifier.num_classes
+        outs = chunked_roi_stage_traced(
+            cls_chunk, packed, total, chunk,
+            (((k,), torch.float32), ((k,), torch.float32),
+             ((k, 6), torch.float32)),
+            (image_meta, list(mrcnn_feats), module_state(model.classifier)))
+    else:
+        # Host sync: the live proposal count decides which chunks launch.
+        outs = chunked_roi_stage(
+            lambda x: cls_chunk(x, image_meta, mrcnn_feats), packed,
+            int(total), chunk)
     return tuple(x[0][inv].reshape((b, n) + x.shape[2:]) for x in outs)
 
 
@@ -128,9 +194,19 @@ def compacted_mask_stage(model: MaskRCNN, detections, det_valid, image_meta,
     batch_f = batch_f.repeat_interleave(n)[perm]
     aligned = model.mask_align_compact(boxes_f, batch_f.to(torch.int32), total,
                                        image_meta, mrcnn_feats)
-    # Host sync: the live detection count decides which chunks launch.
-    masks_flat = chunked_roi_stage(lambda x: (model.apply_mask_head(x),),
-                                   aligned[None], int(total), chunk)[0][0]
+    if torch.compiler.is_exporting():
+        m2 = 2 * model.mask_pool_size
+        masks_flat = chunked_roi_stage_traced(
+            lambda x, head: (torch.func.functional_call(
+                model.mask_head, head, (x,), strict=True),),
+            aligned[None], total, chunk,
+            (((m2, m2, m2, model.classifier.num_classes), torch.float32),),
+            (module_state(model.mask_head),))
+    else:
+        # Host sync: the live detection count decides which chunks launch.
+        masks_flat = chunked_roi_stage(lambda x: (model.apply_mask_head(x),),
+                                       aligned[None], int(total), chunk)
+    masks_flat = masks_flat[0][0]
     return masks_flat[inv].reshape((b, n) + masks_flat.shape[1:])
 
 

@@ -169,13 +169,20 @@ class MaskRCNN(nn.Module):
             pre_nms_limit=self.pre_nms_limit, image_depth=self.image_depth)
 
     def classify_rois_flat(self, boxes_flat, batch_idx, image_meta,
-                           mrcnn_feature_maps):
+                           mrcnn_feature_maps, head=None):
         """Classifier stage over a flat ROI list (gather-path ROIAlign + FC
-        head). Returns ([N, K] logits, [N, K] probs, [N, K, 6] deltas)."""
+        head). Returns ([N, K] logits, [N, K] probs, [N, K, 6] deltas).
+        ``head``: the classifier's parameters and buffers to run it on
+        (``torch.func.functional_call``; a traced branch passes them in),
+        by default its own."""
         aligned = pyramid_roi_align_flat(boxes_flat, batch_idx, image_meta,
                                          list(mrcnn_feature_maps),
                                          self.pool_size)
-        logits, probs, deltas = self.classifier(aligned[None])
+        if head is None:
+            logits, probs, deltas = self.classifier(aligned[None])
+        else:
+            logits, probs, deltas = torch.func.functional_call(
+                self.classifier, head, (aligned[None],), strict=True)
         return logits[0], probs[0], deltas[0]
 
     def mask_align_compact(self, boxes_flat, batch_idx, total, image_meta,

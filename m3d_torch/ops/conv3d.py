@@ -18,12 +18,17 @@ from torch import nn
 
 
 def same_padding(kernel_size, strides, in_sizes, dilation):
-    """Per-axis (lo, hi) SAME padding as XLA computes it: lo = total // 2."""
+    """Per-axis (lo, hi) SAME padding as XLA computes it: lo = total // 2.
+
+    No builtin ``max``: inside a ``torch.cond`` branch under export, dynamo
+    traces with symbolic sizes, and there ``max`` of a size expression and
+    0 gave 0 (torch 2.13) where the comparison below is exact."""
     pads = []
     for k, s, n, dl in zip(kernel_size, strides, in_sizes, dilation):
         eff = (k - 1) * dl + 1
         out = -(-n // s)
-        total = max((out - 1) * s + eff - n, 0)
+        total = (out - 1) * s + eff - n
+        total = total if total > 0 else 0
         pads.append((total // 2, total - total // 2))
     return pads
 

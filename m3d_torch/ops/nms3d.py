@@ -20,6 +20,12 @@ Output contract (m3d/models/inference.py relies on it): exactly
 ``max_output`` indices per image, the kept ones first in descending score
 order, then padding slots with index 0 and ``valid`` False.
 
+Under ``torch.export`` (m3d_torch/serve.py) no value is read on the host
+while tracing: the fixpoint becomes a ``while_loop`` with the same round
+cap, and the blockwise greedy a static loop over every block, each gated
+by ``torch.cond`` on the live count. Both give the eager forms' bits; the
+eager forms, which training and evaluation run, keep their host reads.
+
 ``nms_3d_numpy`` is the plain greedy oracle (a copy of JAX's), for the
 tests and the card-side checks.
 """
@@ -97,7 +103,10 @@ def _fixpoint(alive0, sup, check_every: int, max_rounds: int):
     """Iterate alive <- alive0 & ~(alive @ sup) from alive0 ([B, n] bool,
     sup [B, n, n] float) for at most ``max_rounds`` rounds; the host reads
     whether the last round changed anything once every ``check_every``
-    rounds."""
+    rounds. Under export: ``_fixpoint_traced``, the same set (rounds past
+    the fixpoint change nothing, and both stop at the cap)."""
+    if torch.compiler.is_exporting():
+        return _fixpoint_traced(alive0, sup, max_rounds)
     alive = alive0
     rounds = 0
     while rounds < max_rounds:
@@ -109,6 +118,27 @@ def _fixpoint(alive0, sup, check_every: int, max_rounds: int):
         if not bool((alive != prev).any()):
             break
     return alive
+
+
+def _fixpoint_traced(alive0, sup, max_rounds: int):
+    """``_fixpoint`` as one ``while_loop``: a round runs while the last one
+    changed something and fewer than ``max_rounds`` have run. The loop
+    reads its predicate when the graph runs, never while tracing. The
+    operators are called directly, every tensor passed in (their graphs
+    lift no captured tensor), as ``chunked_roi_stage_traced`` does."""
+    def cond(rounds, alive, changed, alive0, sup):
+        return changed & (rounds < max_rounds)
+
+    def body(rounds, alive, changed, alive0, sup):
+        killed = torch.bmm(alive.float()[:, None, :], sup)[:, 0] > 0.5
+        nxt = alive0 & ~killed
+        return rounds + 1, nxt, (nxt != alive).any()
+
+    start = (torch.zeros((), dtype=torch.int64, device=alive0.device),
+             alive0.clone(),
+             torch.ones((), dtype=torch.bool, device=alive0.device))
+    return torch.ops.higher_order.while_loop(cond, body, start,
+                                             (alive0, sup))[1]
 
 
 def nms_3d(boxes, scores, iou_threshold: float, max_output: int,
@@ -171,6 +201,10 @@ def nms_3d_blockwise(boxes, scores, iou_threshold: float, max_output: int,
 
     pos = torch.arange(block_size, device=boxes.device)
     earlier = pos[:, None] < pos[None, :]
+    if torch.compiler.is_exporting():
+        kept = _blockwise_traced(boxes_s, vols, alive0, earlier,
+                                 iou_threshold, block_size)
+        return _select(order, kept, max_output, n)
     suppressed = torch.zeros_like(alive0)
     kept = torch.zeros_like(alive0)
     n_live = int(alive0.sum(1).max()) if b else 0
@@ -187,6 +221,52 @@ def nms_3d_blockwise(boxes, scores, iou_threshold: float, max_output: int,
             kills = ((iou > iou_threshold) & blk_kept[:, :, None]).any(1)
             suppressed[:, end:] |= kills
     return _select(order, kept, max_output, n)
+
+
+def _block_step(start: int, end: int, n_total: int, iou_threshold: float,
+                block_size: int):
+    """The live branch of block [start, end) in ``_blockwise_traced``."""
+    def live(kept, suppressed, boxes_s, vols, alive0, earlier):
+        blk, blk_vols = boxes_s[:, start:end], vols[:, start:end]
+        iou = pairwise_iou(blk, blk, blk_vols, blk_vols)
+        sup = ((iou > iou_threshold) & earlier).float()
+        blk_alive0 = alive0[:, start:end] & ~suppressed[:, start:end]
+        blk_kept = _fixpoint_traced(blk_alive0, sup, block_size)
+        kept = torch.cat([kept[:, :start], blk_kept, kept[:, end:]], 1)
+        if end < n_total:
+            iou = pairwise_iou(blk, boxes_s[:, end:], blk_vols, vols[:, end:])
+            kills = ((iou > iou_threshold) & blk_kept[:, :, None]).any(1)
+            suppressed = torch.cat(
+                [suppressed[:, :end], suppressed[:, end:] | kills], 1)
+        else:
+            suppressed = suppressed.clone()
+        return kept, suppressed
+
+    return live
+
+
+def _blockwise_traced(boxes_s, vols, alive0, earlier, iou_threshold: float,
+                      block_size: int):
+    """The block loop of ``nms_3d_blockwise`` for export: every block of the
+    padded axis, each under a ``cond`` on ``start < n_live`` (a device
+    value), written without in-place updates. A dead block leaves ``kept``
+    and ``suppressed`` as they were, as the eager loop that stops before it
+    does. Returns ``kept`` [B, N_total] bool."""
+    b, n_total = alive0.shape
+    n_live = alive0.sum(1).max() if b else alive0.new_zeros((), torch.int64)
+    suppressed = torch.zeros_like(alive0)
+    kept = torch.zeros_like(alive0)
+
+    def dead(kept, suppressed, boxes_s, vols, alive0, earlier):
+        return kept.clone(), suppressed.clone()
+
+    for start in range(0, n_total, block_size):
+        live = _block_step(start, start + block_size, n_total, iou_threshold,
+                           block_size)
+        kept, suppressed = torch.ops.higher_order.cond(
+            n_live > start, live, dead,
+            (kept, suppressed, boxes_s, vols, alive0, earlier))
+    return kept
 
 
 def nms_3d_numpy(boxes: np.ndarray, scores: np.ndarray, iou_threshold: float,

@@ -23,7 +23,8 @@ from m3d_torch.ops.roialign_compact import (flatten_pyramid,
                                             needs_feature_grad,
                                             roialign_compact,
                                             roialign_padded, trilinear_gather)
-from m3d_torch.ops.roialign_fc import conv1_weight_fk, roialign_fc
+from m3d_torch.ops.roialign_fc import (conv1_weight_fk, fc_kernel_takes,
+                                       roialign_fc)
 from m3d_torch.ops.roialign_slab import roialign_slab
 
 Z_ALIGN = 8  # slab z origins are 8-aligned, as the JAX entries place them
@@ -126,11 +127,24 @@ def _pool_size(pool_size) -> int:
     return int(pool_size)
 
 
+def _int_table(rows, device):
+    """An int64 tensor of the nested int lists ``rows``. Under export it is
+    built from ops, not as a tensor constant: the adaptive classifier's
+    chunks run in traced ``cond`` branches, whose graphs cannot hold one."""
+    if not torch.compiler.is_exporting():
+        return torch.tensor(rows, dtype=torch.long, device=device)
+    return torch.stack([
+        torch.stack([torch.full((), int(v), dtype=torch.long, device=device)
+                     for v in row]) if isinstance(row, (tuple, list))
+        else torch.full((), int(row), dtype=torch.long, device=device)
+        for row in rows])
+
+
 def _level_positions(boxes, levels, feature_maps, p: int):
     """Per-ROI level extents [N, 3] (int64) and sample positions, three
     [N, p] float32 grids."""
-    dims = torch.tensor([tuple(fm.shape[1:4]) for fm in feature_maps],
-                        dtype=torch.long, device=boxes.device)
+    dims = _int_table([tuple(fm.shape[1:4]) for fm in feature_maps],
+                      boxes.device)
     rd = dims[levels.long()]
     pos = tuple(axis_positions(boxes[:, a], boxes[:, a + 3], rd[:, a], p)
                 for a in range(3))
@@ -142,7 +156,7 @@ def gather_flat_sanitized(boxes, levels, batch_idx, feature_maps, p: int):
     [N, p, p, p, C] in the features' dtype (float32 math), NaN-scrubbed."""
     flat, offsets, _, cells = flatten_pyramid(feature_maps)
     rd, pos = _level_positions(boxes, levels, feature_maps, p)
-    off = torch.tensor(offsets, dtype=torch.long, device=boxes.device)
+    off = _int_table(offsets, boxes.device)
     base = batch_idx.long() * cells + off[levels.long()]
     out = trilinear_gather(
         flat, base, dims=tuple(rd[:, a].float() for a in range(3)),
@@ -363,16 +377,18 @@ def _tiered_slab(boxes_f, levels_f, batch_f, fms, p, slab):
 
 def fused_classifier_ok(pool_size, feature_maps) -> bool:
     """True when the fused ROIAlign+FC entry serves the classifier stage: a
-    cubic pool over four levels. On a card that is the whole rule (the
-    kernel raises for features it cannot take); on the CPU its plain
-    version also needs bf16 or float32 features with an even C."""
+    cubic pool over four levels of bf16 or float32 features with an even C.
+    The rule reads shapes and dtypes only, never the device, so a graph
+    routes the same way wherever it was traced (the card takes bf16 alone:
+    its kernels raise for float32 features, on this route and the other).
+    Rows of a (C, F) the fused kernel cannot take go to its fallback route
+    inside the entry (``fc_kernel_takes``)."""
     if isinstance(pool_size, (tuple, list)) and len(set(pool_size)) != 1:
         return False
     if len(feature_maps) != 4:
         return False
     f0 = feature_maps[0]
-    return f0.device.type == "cuda" or (
-        f0.dtype in (torch.bfloat16, torch.float32) and f0.shape[-1] % 2 == 0)
+    return f0.dtype in (torch.bfloat16, torch.float32) and f0.shape[-1] % 2 == 0
 
 
 def pyramid_roi_align_auto(boxes, image_meta, feature_maps, pool_size):
@@ -431,7 +447,10 @@ def _roi_align_fc_flat_core(boxes_f, levels_f, batch_f, fms, p, fc_weight,
     through the slab kernel at the exact-coverage slab with bounds
     (n_fit, N - n_fit) and ``conv3d_fc`` (over all N rows, as in JAX).
     The two are combined by row index and un-sorted. ``n_fit`` stays on
-    the device: no host sync."""
+    the device: no host sync. Where the fused kernel cannot take the
+    features' C or the weight's F (``fc_kernel_takes``), on any device,
+    every row takes the fallback route and the fused entry is not called.
+    """
     if kernel not in ("kron", "separable"):
         raise ValueError(f"unknown fused kernel {kernel!r}")
     n_flat = boxes_f.shape[0]
@@ -439,9 +458,11 @@ def _roi_align_fc_flat_core(boxes_f, levels_f, batch_f, fms, p, fc_weight,
     fc_slab = tuple(min(cap, s) for cap, s in zip(fc_slab_cap, slab))
     rd, pos = _level_positions(boxes_f, levels_f, fms, p)
     rdf = rd.float()
+    fused = fc_kernel_takes(fms[0].shape[-1], fc_weight.shape[0])
     fits = ((_cells_needed(pos[0], rdf[:, 0]) <= fc_slab[0])
             & (_cells_needed(pos[1], rdf[:, 1]) <= fc_slab[1])
-            & (_cells_needed(pos[2], rdf[:, 2]) + (Z_ALIGN - 1) <= fc_slab[2]))
+            & (_cells_needed(pos[2], rdf[:, 2]) + (Z_ALIGN - 1) <= fc_slab[2])
+            & fused)
     order = torch.sort((~fits).to(torch.uint8), stable=True).indices
     inv = torch.argsort(order, stable=True)
     n_fit = fits.sum().to(torch.int32)
@@ -452,15 +473,17 @@ def _roi_align_fc_flat_core(boxes_f, levels_f, batch_f, fms, p, fc_weight,
     pdims = pdims_lut[levels_s.long()]
     zero = torch.zeros((), dtype=torch.int32, device=n_fit.device)
 
-    wk = conv1_weight_fk(fc_weight, fms[0].dtype)
-    out_fc = roialign_fc(levels_s, batch_s,
-                         *_slab_weights(pos_s, rd_s, pdims, fc_slab), fms, wk,
-                         torch.stack([zero, n_fit]).contiguous())
     pooled = roialign_slab(levels_s, batch_s,
                            *_slab_weights(pos_s, rd_s, pdims, slab), fms,
                            torch.stack([n_fit, n_flat - n_fit]).contiguous())
-    out_fb = conv3d_fc(pooled, fc_weight,
-                       out_dtype=torch.float32).reshape(n_flat, -1)
-    idx = torch.arange(n_flat, device=n_fit.device)
-    out = torch.where((idx < n_fit)[:, None], out_fc, out_fb)[inv]
+    out = conv3d_fc(pooled, fc_weight,
+                    out_dtype=torch.float32).reshape(n_flat, -1)
+    if fused:
+        wk = conv1_weight_fk(fc_weight, fms[0].dtype)
+        out_fc = roialign_fc(levels_s, batch_s,
+                             *_slab_weights(pos_s, rd_s, pdims, fc_slab), fms,
+                             wk, torch.stack([zero, n_fit]).contiguous())
+        idx = torch.arange(n_flat, device=n_fit.device)
+        out = torch.where((idx < n_fit)[:, None], out_fc, out)
+    out = out[inv]
     return torch.where(torch.isfinite(out), out, out.new_zeros(()))

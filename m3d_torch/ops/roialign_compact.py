@@ -17,8 +17,12 @@ does (m3d_torch.ops.roialign3d.pyramid_roi_align_compact prepares them):
 
 It returns [N, p, p, p, C] in the features' dtype, rows at or beyond
 ``total`` exactly zero. The kernel has no backward: both entries raise,
-on any device, for a feature map that needs a gradient. On a CPU tensor it runs ``roialign_compact_plain``;
-on a CUDA tensor it launches the kernel or raises. The library is built
+on any device, for a feature map that needs a gradient. Both are
+``torch.library`` ops (``m3d_torch::roialign_compact``,
+``m3d_torch::roialign_padded``), so an exported graph (m3d_torch/serve.py)
+calls them: on a CPU tensor they run ``roialign_compact_plain``; on a CUDA
+tensor they launch the kernel or raise; under tracing their fakes give the
+output's shape and dtype only. The library is built
 with nvcc into m3d_torch/_build/ on first use (m3d_torch/ops/cuda_build.py)
 and rebuilt when the source changes.
 
@@ -143,6 +147,8 @@ def refuse_feature_grad(feature_maps, what: str) -> None:
 
 
 def _check(levels, batch_idx, total, pos, feature_maps):
+    """The wrappers' input checks (``batch_idx`` and ``total`` None: the
+    padded entry, which builds them)."""
     dev = pos.device
     refuse_feature_grad(feature_maps, "compact ROIAlign")
     if len(feature_maps) != 4:
@@ -166,10 +172,11 @@ def _check(levels, batch_idx, total, pos, feature_maps):
         raise ValueError("pos must be contiguous float32 [N, 3, p]")
     n = pos.shape[0]
     for name, t in (("levels", levels), ("batch_idx", batch_idx)):
-        if t.device != dev or t.dtype != torch.int32 or t.shape != (n,) \
-                or not t.is_contiguous():
+        if t is not None and (t.device != dev or t.dtype != torch.int32
+                              or t.shape != (n,) or not t.is_contiguous()):
             raise ValueError(f"{name} must be contiguous int32 [N] on {dev}")
-    if total.device != dev or total.dtype != torch.int32 or total.numel() != 1:
+    if total is not None and (total.device != dev or total.dtype != torch.int32
+                              or total.numel() != 1):
         raise ValueError(f"total must be one int32 on {dev}")
 
 
@@ -195,13 +202,65 @@ def _launch(levels, batch_idx, total, pos, feature_maps, count):
     return out
 
 
+def _padded_rows(n: int, n_per_image: int, dev):
+    """batch_idx = i // n_per_image and total = N of the padded entry."""
+    batch_idx = torch.div(torch.arange(n, device=dev, dtype=torch.int32),
+                          n_per_image, rounding_mode="floor")
+    return batch_idx, torch.full((), n, dtype=torch.int32, device=dev)
+
+
+def _rows_fake(pos, feature_maps):
+    n, _, p = pos.shape
+    f0 = feature_maps[0]
+    return pos.new_empty((n, p, p, p, f0.shape[-1]), dtype=f0.dtype)
+
+
+@torch.library.custom_op("m3d_torch::roialign_compact", mutates_args=(),
+                         device_types="cpu")
+def _compact_op(levels: torch.Tensor, batch_idx: torch.Tensor,
+                total: torch.Tensor, pos: torch.Tensor,
+                feature_maps: list[torch.Tensor]) -> torch.Tensor:
+    return roialign_compact_plain(levels, batch_idx, total, pos,
+                                  feature_maps)
+
+
+@_compact_op.register_kernel("cuda")
+def _compact_launch(levels, batch_idx, total, pos, feature_maps):
+    return _launch(levels, batch_idx, total, pos, feature_maps, KERNEL)
+
+
+@_compact_op.register_fake
+def _compact_fake(levels, batch_idx, total, pos, feature_maps):
+    return _rows_fake(pos, feature_maps)
+
+
+@torch.library.custom_op("m3d_torch::roialign_padded", mutates_args=(),
+                         device_types="cpu")
+def _padded_op(levels: torch.Tensor, pos: torch.Tensor,
+               feature_maps: list[torch.Tensor],
+               n_per_image: int) -> torch.Tensor:
+    return roialign_compact_plain(
+        levels, *_padded_rows(pos.shape[0], n_per_image, pos.device), pos,
+        feature_maps)
+
+
+@_padded_op.register_kernel("cuda")
+def _padded_launch(levels, pos, feature_maps, n_per_image):
+    return _launch(levels, *_padded_rows(pos.shape[0], n_per_image,
+                                         pos.device),
+                   pos, feature_maps, PADDED)
+
+
+@_padded_op.register_fake
+def _padded_fake(levels, pos, feature_maps, n_per_image):
+    return _rows_fake(pos, feature_maps)
+
+
 def roialign_compact(levels, batch_idx, total, pos, feature_maps):
     """Compact ROIAlign; see the module docstring for the contract."""
     _check(levels, batch_idx, total, pos, feature_maps)
-    if not on_card(pos.device, "compact ROIAlign"):
-        return roialign_compact_plain(levels, batch_idx, total, pos,
-                                      feature_maps)
-    return _launch(levels, batch_idx, total, pos, feature_maps, KERNEL)
+    on_card(pos.device, "compact ROIAlign")
+    return _compact_op(levels, batch_idx, total, pos, list(feature_maps))
 
 
 def roialign_padded(levels, pos, feature_maps, n_per_image: int):
@@ -211,14 +270,8 @@ def roialign_padded(levels, pos, feature_maps, n_per_image: int):
     n_per_image`` and ``total = N`` (a device tensor: no host sync); its
     launches count under ``PADDED``. Returns [N, p, p, p, C]."""
     n = pos.shape[0]
-    dev = pos.device
     if n_per_image <= 0 or n % n_per_image:
         raise ValueError(f"{n} rows are not whole images of {n_per_image}")
-    batch_idx = torch.div(torch.arange(n, device=dev, dtype=torch.int32),
-                          n_per_image, rounding_mode="floor")
-    total = torch.full((), n, dtype=torch.int32, device=dev)
-    _check(levels, batch_idx, total, pos, feature_maps)
-    if not on_card(dev, "padded ROIAlign"):
-        return roialign_compact_plain(levels, batch_idx, total, pos,
-                                      feature_maps)
-    return _launch(levels, batch_idx, total, pos, feature_maps, PADDED)
+    _check(levels, None, None, pos, feature_maps)
+    on_card(pos.device, "padded ROIAlign")
+    return _padded_op(levels, pos, list(feature_maps), int(n_per_image))

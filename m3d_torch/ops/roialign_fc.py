@@ -15,9 +15,11 @@ the device from ``bounds``).
 the FC weight as [F, p^3 * C] in the features' dtype, K ordered as the
 pooled [p, p, p, C] row flattens (``conv1_weight_fk``). It returns [N, F]
 float32 without bias: rows in [offset, offset + count) hold the pooled row
-(rounded to the features' dtype) times ``wk``, other rows are zero. On a
-CPU tensor it runs ``roialign_fc_plain``; on a CUDA tensor it launches the
-kernel or raises.
+(rounded to the features' dtype) times ``wk``, other rows are zero. The
+entry is the ``torch.library`` op ``m3d_torch::roialign_fc``, so an exported
+graph (m3d_torch/serve.py) calls it: on a CPU tensor it runs
+``roialign_fc_plain``; on a CUDA tensor it launches the kernel or raises;
+under tracing its fake gives the output's shape and dtype only.
 """
 
 from __future__ import annotations
@@ -42,7 +44,12 @@ def conv1_weight_fk(weight, dtype):
 
     The result is kept on ``weight`` and reused while the parameter's
     storage and version counter are unchanged: an in-place update (an
-    optimizer step, ``load_state_dict``) rebuilds it on the next call."""
+    optimizer step, ``load_state_dict``) rebuilds it on the next call.
+    Under ``torch.export`` nothing is kept: the re-layout becomes part of
+    the graph, which takes the weight as an argument."""
+    if torch.compiler.is_exporting():
+        return weight.permute(0, 2, 3, 4, 1).reshape(
+            weight.shape[0], -1).to(dtype).contiguous()
     key = (weight.data_ptr(), weight._version, dtype, weight.device)
     cached = getattr(weight, "_m3d_fk", None)
     if cached is not None and cached[0] == key:
@@ -66,22 +73,32 @@ def roialign_fc_plain(levels, batch_idx, origins, wy, wx, wz, feature_maps,
             @ wk.float().t().contiguous())
 
 
-def roialign_fc(levels, batch_idx, origins, wy, wx, wz, feature_maps, wk,
-                bounds):
-    """Fused ROIAlign + FC; see the module docstring for the contract."""
-    n, p, (sy, sx, sz), c = check_slab_inputs(
-        levels, batch_idx, origins, wy, wx, wz, feature_maps, bounds)
+def fc_kernel_takes(c: int, f: int) -> bool:
+    """True when the kernel takes C channels and F outputs (C % K_CHUNK and
+    F % 8 both 0). The classifier's fused route asks this of the shapes
+    alone, on every device, and sends every row to its fallback otherwise
+    (m3d_torch.ops.roialign3d._roi_align_fc_flat_core)."""
+    return c % K_CHUNK == 0 and f % 8 == 0
+
+
+@torch.library.custom_op("m3d_torch::roialign_fc", mutates_args=(),
+                         device_types="cpu")
+def _fc_op(levels: torch.Tensor, batch_idx: torch.Tensor,
+           origins: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+           wz: torch.Tensor, feature_maps: list[torch.Tensor],
+           wk: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
+    return roialign_fc_plain(levels, batch_idx, origins, wy, wx, wz,
+                             feature_maps, wk, bounds)
+
+
+@_fc_op.register_kernel("cuda")
+def _fc_launch(levels, batch_idx, origins, wy, wx, wz, feature_maps, wk,
+               bounds):
     dev = wy.device
-    f0 = feature_maps[0]
-    if (wk.dim() != 2 or wk.shape[1] != p ** 3 * c or wk.dtype != f0.dtype
-            or wk.device != dev or not wk.is_contiguous()):
-        raise ValueError(f"wk must be contiguous [F, {p ** 3 * c}] "
-                         f"{f0.dtype} on {dev}")
-    f = wk.shape[0]
-    if not on_card(dev, "fused ROIAlign+FC"):
-        return roialign_fc_plain(levels, batch_idx, origins, wy, wx, wz,
-                                 feature_maps, wk, bounds)
-    if c % K_CHUNK or f % 8:
+    n, p = wy.shape[:2]
+    sy, sx, sz = wy.shape[2], wx.shape[2], wz.shape[2]
+    c, f = feature_maps[0].shape[-1], wk.shape[0]
+    if not fc_kernel_takes(c, f):
         raise ValueError(f"the kernel needs C % {K_CHUNK} == 0 and F % 8 == "
                          f"0, got C={c}, F={f}")
     if any(t.data_ptr() % 16 for t in (*feature_maps, wk)):
@@ -102,3 +119,25 @@ def roialign_fc(levels, batch_idx, origins, wy, wx, wz, feature_maps, wk,
                  stream_of(wy))
     KERNEL.launches += 1
     return out
+
+
+@_fc_op.register_fake
+def _fc_fake(levels, batch_idx, origins, wy, wx, wz, feature_maps, wk,
+             bounds):
+    return wy.new_empty((wy.shape[0], wk.shape[0]), dtype=torch.float32)
+
+
+def roialign_fc(levels, batch_idx, origins, wy, wx, wz, feature_maps, wk,
+                bounds):
+    """Fused ROIAlign + FC; see the module docstring for the contract."""
+    n, p, _, c = check_slab_inputs(
+        levels, batch_idx, origins, wy, wx, wz, feature_maps, bounds)
+    dev = wy.device
+    f0 = feature_maps[0]
+    if (wk.dim() != 2 or wk.shape[1] != p ** 3 * c or wk.dtype != f0.dtype
+            or wk.device != dev or not wk.is_contiguous()):
+        raise ValueError(f"wk must be contiguous [F, {p ** 3 * c}] "
+                         f"{f0.dtype} on {dev}")
+    on_card(dev, "fused ROIAlign+FC")
+    return _fc_op(levels, batch_idx, origins, wy, wx, wz, list(feature_maps),
+                  wk, bounds)

@@ -19,8 +19,10 @@ It returns [N, p, p, p, C] in the features' dtype; rows in
 [offset, offset + count) hold sum_{a,b,k} wy*wx*wz * F[o + (a, b, k)],
 other rows are zero. A voxel at or beyond a level's extent reads 0, which
 is what the TPU entry's zero-padded levels give, so the levels are passed
-unpadded. On a CPU tensor it runs ``roialign_slab_plain``; on a CUDA
-tensor it launches the kernel or raises.
+unpadded. The entry is the ``torch.library`` op ``m3d_torch::roialign_slab``,
+so an exported graph (m3d_torch/serve.py) calls it: on a CPU tensor it runs
+``roialign_slab_plain``; on a CUDA tensor it launches the kernel or raises;
+under tracing its fake gives the output's shape and dtype only.
 """
 
 from __future__ import annotations
@@ -124,15 +126,22 @@ def roialign_slab_plain(levels, batch_idx, origins, wy, wx, wz, feature_maps,
     return out
 
 
-def roialign_slab(levels, batch_idx, origins, wy, wx, wz, feature_maps,
-                  bounds):
-    """Slab ROIAlign; see the module docstring for the contract."""
-    n, p, (sy, sx, sz), c = check_slab_inputs(
-        levels, batch_idx, origins, wy, wx, wz, feature_maps, bounds)
+@torch.library.custom_op("m3d_torch::roialign_slab", mutates_args=(),
+                         device_types="cpu")
+def _slab_op(levels: torch.Tensor, batch_idx: torch.Tensor,
+             origins: torch.Tensor, wy: torch.Tensor, wx: torch.Tensor,
+             wz: torch.Tensor, feature_maps: list[torch.Tensor],
+             bounds: torch.Tensor) -> torch.Tensor:
+    return roialign_slab_plain(levels, batch_idx, origins, wy, wx, wz,
+                               feature_maps, bounds)
+
+
+@_slab_op.register_kernel("cuda")
+def _slab_launch(levels, batch_idx, origins, wy, wx, wz, feature_maps,
+                 bounds):
     dev = wy.device
-    if not on_card(dev, "slab ROIAlign"):
-        return roialign_slab_plain(levels, batch_idx, origins, wy, wx, wz,
-                                   feature_maps, bounds)
+    n, p = wy.shape[:2]
+    c = feature_maps[0].shape[-1]
     out = torch.empty((n, p, p, p, c), dtype=feature_maps[0].dtype,
                       device=dev)
     if n == 0:
@@ -143,7 +152,25 @@ def roialign_slab(levels, batch_idx, origins, wy, wx, wz, feature_maps,
                  *(fm.data_ptr() for fm in feature_maps), *dims,
                  levels.data_ptr(), batch_idx.data_ptr(), origins.data_ptr(),
                  wy.data_ptr(), wx.data_ptr(), wz.data_ptr(),
-                 bounds.data_ptr(), out.data_ptr(), n, p, sy, sx, sz, c,
-                 stream_of(wy))
+                 bounds.data_ptr(), out.data_ptr(), n, p, wy.shape[2],
+                 wx.shape[2], wz.shape[2], c, stream_of(wy))
     KERNEL.launches += 1
     return out
+
+
+@_slab_op.register_fake
+def _slab_fake(levels, batch_idx, origins, wy, wx, wz, feature_maps,
+               bounds):
+    n, p = wy.shape[:2]
+    f0 = feature_maps[0]
+    return wy.new_empty((n, p, p, p, f0.shape[-1]), dtype=f0.dtype)
+
+
+def roialign_slab(levels, batch_idx, origins, wy, wx, wz, feature_maps,
+                  bounds):
+    """Slab ROIAlign; see the module docstring for the contract."""
+    check_slab_inputs(levels, batch_idx, origins, wy, wx, wz, feature_maps,
+                      bounds)
+    on_card(wy.device, "slab ROIAlign")
+    return _slab_op(levels, batch_idx, origins, wy, wx, wz,
+                    list(feature_maps), bounds)

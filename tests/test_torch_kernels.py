@@ -278,12 +278,31 @@ def _zero_row_calls(on_gpu: bool):
 
 @pytest.mark.parametrize("name", ["compact", "padded", "slab", "fc"])
 def test_zero_rows_launch_nothing_and_count_nothing(name, monkeypatch):
-    """A wrapper on its kernel's route (forced here on CPU tensors) with
-    zero rows returns an empty result, launches nothing and leaves its
-    launch count as it was."""
+    """Each op's CUDA implementation (the kernel's route, called here on
+    CPU tensors: the dispatcher sends a CPU tensor to the plain version)
+    with zero rows returns an empty result, calls no library entry and
+    leaves its launch count as it was."""
+    def no_call(*args):
+        raise AssertionError("a zero-row call reached the library")
+
     for mod in (TC, TS, TF):
-        monkeypatch.setattr(mod, "on_card", lambda dev, what: True)
-    count, call = _zero_row_calls(on_gpu=False)[name]
+        monkeypatch.setattr(mod.LIB, "call", no_call)
+    rng = np.random.RandomState(17)
+    levels, bat, _, pos, feats = _kernel_args(rng, c=64)
+    slab = _slab_args(rng, c=64)
+    empty = [t[:0].contiguous() for t in (levels, bat, pos)]
+    slab0 = [t[:0].contiguous() for t in slab[:6]] + [slab[6]]
+    bounds = torch.zeros(2, dtype=torch.int32)
+    wk = torch.zeros(8, 64 * 7 ** 3)
+    total = torch.zeros((), dtype=torch.int32)
+    count, call = {
+        "compact": (TC.KERNEL, lambda: TC._compact_launch(
+            empty[0], empty[1], total, empty[2], feats)),
+        "padded": (TC.PADDED, lambda: TC._padded_launch(
+            empty[0], empty[2], feats, 6)),
+        "slab": (TS.KERNEL, lambda: TS._slab_launch(*slab0, bounds)),
+        "fc": (TF.KERNEL, lambda: TF._fc_launch(*slab0, wk, bounds)),
+    }[name]
     before = count.launches
     out = call()
     assert out.shape[0] == 0
@@ -303,9 +322,9 @@ def test_zero_rows_count_nothing_on_card(name):
 
 @pytest.mark.cuda
 def test_fused_route_raises_on_card_for_features_it_cannot_take():
-    """On the card the classifier stage always takes the fused kernel: a
-    cubic pool is the whole rule, and features the kernel cannot take
-    (C % 64 != 0) raise instead of moving to another route."""
+    """The fused kernel itself raises on the card for features it cannot
+    take (C % 64 != 0) instead of moving to another route; the classifier
+    stage never hands it such features (``fc_kernel_takes``)."""
     _needs_card()
     rng = np.random.RandomState(18)
     args = _to_card(_slab_args(rng, c=96, dtype=torch.bfloat16))
