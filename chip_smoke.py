@@ -140,6 +140,29 @@ seconds:
               the step split and the gather's forward and backward ms; then
               MRCNN_EVALUATION of its best.msgpack (mrcnn_eval):
               det_recall >= 0.7
+  parallel    after mrcnn_eval (it reuses mrcnn_train's data, config and
+              checkpoint): MRCNN_TRAINING as mrcnn_train ran it, through
+              ``python -m torch.distributed.run --standalone
+              --nproc_per_node 1 -m m3d_torch`` (one NCCL rank on the
+              distributed path), its latest.msgpack within PAR_EPOCH_TOL
+              of mrcnn_train's update (beside that run repeated in
+              process, the plain path's own spread); then PAR_RANKS gloo
+              ranks sharing cuda:0 (m3d_torch.parallel.mesh.spawn; NCCL
+              refuses two ranks on one device), each held to one process
+              on the card: two MRCNN steps at a global batch of 2 (the
+              first's loss, the parameters within PAR_STEP_TOL of one
+              process's update), spatial_extract_features of
+              the 4 bench volumes with Y over 2 ranks (the pyramid within
+              one bf16 rounding; layout and halo bytes), make_spatial_
+              inference (recall >= 0.7, detections matched to the
+              monolithic graph's), dryrun_step on a (1, 2) mesh (loss);
+              every kernel call in the ranks held to its plain version;
+              then a data_parallel=2 monolithic bundle on cuda:0 twice
+              (one card: the slices in turn), each slice held to
+              MaskRCNN.forward on it and that twin's #2, #3, #4 calls to
+              their plain versions. Prints the step
+              ms of 1 and 2 ranks, the trunk ms, peak memory per rank and
+              the phase's seconds
   train_bn    TRAIN_BN on RPN_TRAINING (one epoch) and MRCNN_TRAINING (one
               step): finite losses, every running statistic the run's
               BatchNorms see moved in latest.msgpack; det@0.5_top500
@@ -163,6 +186,16 @@ The line before the last is the kernels' JSON summary; the last line is
 {"ok": true, "device": {...}}. Any failure raises and exits non-zero.
 Writes nothing into the tree but m3d_torch/_build/; the evaluation dataset
 and its artifacts live in a temporary directory that is removed at the end.
+
+    python3 chip_smoke.py --dp-cards N
+
+needs N cards and runs only this: a data_parallel=N monolithic bundle of
+the bench configuration over cuda:0 .. cuda:N-1 (one slice a card, each
+through its own copy of the graph), every slice held to MaskRCNN.forward
+on it (held_to); prints the predict ms (host wall, every card
+synchronised) against the same graphs called from a host thread each, one
+slice's graph alone, and the data_parallel=1 bundle on cuda:0, then the
+same last line.
 """
 
 from __future__ import annotations
@@ -257,6 +290,28 @@ H5_CHUNKS = dict(CLASSIFIER_CHUNK=64, MASK_CHUNK=8)
 SERVE_SHAPES = ((SIZE, SIZE, SIZE), (100, 120, 60))
 SERVE_BOX_TOL = 1e-3
 SERVE_LABEL_TOL = 1e-3
+# parallel: PAR_RANKS gloo ranks sharing cuda:0, each computation held to
+# the same one in one process on the card, in bf16. The MRCNN step (global
+# batch 2): loss within PAR_LOSS_TOL relative, the parameters within
+# PAR_STEP_TOL of one process's update (``update_gap``: a 2x loss scale
+# gives 1, a rank's gradient missing ~0.7; cuDNN's nondeterministic
+# backward alone gave 0.0029 when one process ran the step twice, the
+# ranks 0.0035, measured on an NVIDIA H100 80GB HBM3 at 700 W). The NCCL
+# world-size-1 MRCNN_TRAINING epoch within PAR_EPOCH_TOL of the
+# mrcnn_train phase's update: over an epoch the ROI samples that noise
+# flips spread one process's own rerun by 0.24-0.30 (the same card; the
+# NCCL run 0.25-0.32). The Y-sharded pyramid within KERNEL_TOL x max|level|
+# (one bf16 rounding); spatial inference's detections: at least PAR_MATCH
+# of them matched (IoU >= 0.5) to the monolithic graph's, recall >=
+# RECALL_FLOOR; the dryrun step's loss within PAR_LOSS_TOL; the
+# data_parallel=2 bundle held to in-process MaskRCNN.forward on each half
+# of the batch as the serve phase holds its bundles (held_to), the twin's
+# kernel calls to their plain versions.
+PAR_RANKS = 2
+PAR_LOSS_TOL = 1e-2
+PAR_STEP_TOL = 2e-2
+PAR_EPOCH_TOL = 0.6
+PAR_MATCH = 0.9
 
 T0 = time.perf_counter()
 
@@ -2463,6 +2518,380 @@ def serve_run(smi: str, cfg, model, image, meta_b, anchors, gt_boxes, ref,
     return res
 
 
+def mrcnn_first_steps(config, dev, mesh, save: str | None = None) -> dict:
+    """Two MRCNN_TRAINING steps set up as MrcnnTrainer.train sets them up
+    (the 80/20 split, the generator, the optimiser, the targets'
+    generator), each rank on its rows of the generator's batches of
+    ``mesh``. Saves the parameters after the first step to ``save`` (CPU
+    tensors). Returns the first step's loss, both steps' ms (CUDA events;
+    the first includes cuDNN's first calls) and the host ms to take each
+    batch (every rank assembles the whole batch and keeps its rows)."""
+    from m3d_torch.data.datasets import ToyDataset
+    from m3d_torch.data.generators import MrcnnGenerator, to_device
+    from m3d_torch.models.mask_rcnn import MaskRCNN
+    from m3d_torch.parallel.mesh import shard_batch
+    from m3d_torch.train.mrcnn import MrcnnTrainer
+
+    trainer = MrcnnTrainer(config, device=dev, mesh=mesh)
+    model = MaskRCNN.from_config(config, mode="training", device=dev).eval()
+    trainer.model = model
+    full = ToyDataset()
+    full.load_dataset(config.DATA_DIR, is_train=True,
+                      class_names=tuple(config.CLASS_NAMES))
+    full.prepare()
+    full = full.filter_positive()
+    seed = int(getattr(config, "SEED", 0))
+    ids = np.random.RandomState(seed).permutation(len(full.image_info))
+    train_ds = full.subset(ids[max(1, int(0.2 * len(ids))):])
+    it = iter(MrcnnGenerator(train_ds, config, mode="training", seed=seed))
+    opt = trainer.prepare_train(model)
+    step = trainer.make_train_step(model, opt, torch.Generator(
+        dev).manual_seed(seed + 7))
+    out = {"step_ms": [], "host_ms": []}
+    for i in range(2):
+        t = time.perf_counter()   # every rank assembles the whole batch
+        batch = to_device(shard_batch(mesh, next(it)), dev)
+        out["host_ms"].append((time.perf_counter() - t) * 1e3)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        met = step(batch)
+        ev[1].record()
+        ev[1].synchronize()
+        out["step_ms"].append(ev[0].elapsed_time(ev[1]))
+        if i == 0:
+            out["loss"] = met["loss"]
+            if save:
+                torch.save({k: v.detach().cpu() for k, v in
+                            model.state_dict().items()}, save)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return out
+
+
+def parallel_rank(rank: int, spec: dict) -> dict:
+    """One of PAR_RANKS gloo ranks sharing cuda:0: the MRCNN step of a
+    global batch of PAR_RANKS on a data mesh, spatial_extract_features and
+    make_spatial_inference of the bench volumes on a (1, PAR_RANKS) mesh
+    (halo bytes counted), and dryrun_step on one; every kernel call held to
+    its plain version (Spy), the launches counted over these runs only."""
+    from m3d_torch.checkpoints import (load_params, params_from_jax,
+                                       restore_by_name)
+    from m3d_torch.config import load_config
+    from m3d_torch.models.mask_rcnn import MaskRCNN
+    from m3d_torch.parallel import mesh as M
+    from m3d_torch.parallel import spatial as S
+    from m3d_torch.parallel.dryrun import dryrun_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    devices = [dev] * PAR_RANKS
+    res = {"rank": rank}
+    real_halo, halo_bytes = S.halo, [0]
+
+    def counted_halo(x, axis, lo, hi, fill=0.0):
+        halo_bytes[0] += (lo + hi) * x[:, :1].numel() * x.element_size() \
+            * axis.size
+        return real_halo(x, axis, lo, hi, fill)
+
+    model = MaskRCNN.from_config(bench_config(), mode="inference",
+                                 device=dev).eval()
+    restore_by_name(model, params_from_jax(load_params(spec["ckpt"])[0]))
+    image = torch.as_tensor(spec["image"], device=dev)
+    meta = torch.as_tensor(spec["meta"], device=dev)
+    anchors = torch.as_tensor(spec["anchors"], device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    spy = Spy()
+    S.halo = counted_halo
+    try:
+        res["mrcnn"] = mrcnn_first_steps(
+            load_config(spec["mrcnn_dp"]), dev, M.make_mesh(devices=devices),
+            spec["mrcnn_save"] if rank == 0 else None)
+        m12 = S.make_mesh_2d(1, PAR_RANKS, devices)
+        layout = {}
+        with torch.no_grad():
+            feats = S.spatial_extract_features(model, image, m12,
+                                               layout=layout)
+            halo_bytes[0] = 0
+            res["trunk_ms"] = cuda_ms(
+                lambda: S.spatial_extract_features(model, image, m12), 2)
+            res["halo_bytes"] = halo_bytes[0] // 2
+        res["layout"] = layout
+        res["pyramid_sums"] = [float(f.double().sum()) for f in feats]
+        if rank == 0:
+            torch.save([f.cpu() for f in feats], spec["pyramid_save"])
+        del feats
+        out = S.make_spatial_inference(model, m12)(image, meta, anchors)
+        res["infer"] = {k: v.float().cpu().numpy() for k, v in out.items()
+                        if k in ("detections", "detections_valid",
+                                 "mrcnn_masks")}
+        del out
+        res["dryrun"] = dryrun_step(PAR_RANKS, S.make_mesh_2d(
+            1, PAR_RANKS, devices), dev)
+        torch.cuda.synchronize()
+    finally:
+        S.halo = real_halo
+        spy.restore()
+    res["launches"] = launch_counts()
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    res["errs"] = {}
+    for key, name, check in EVAL_CHECKS:
+        for i, args in enumerate(spy.calls[name]):
+            res["errs"].setdefault(key, []).append(check(
+                args, f"parallel rank {rank} captured {name} call {i}"))
+    return res
+
+
+def update_gap(got: dict, ref: dict, src: dict) -> dict:
+    """How far ``got`` lies from ``ref``, relative to ``ref``'s own update
+    from ``src``: ||got - ref|| / ||ref - src|| over the float leaves of
+    each group (resnet, fpn, rpn, heads) and of all of them."""
+    num: dict = {}
+    den: dict = {}
+    for k, r in ref.items():
+        if not r.is_floating_point() or k not in src:
+            continue
+        g = {"resnet": "resnet", "fpn": "fpn", "rpn": "rpn"}.get(
+            k.split(".")[0], "heads")
+        r = r.double().cpu()
+        for key in (g, "all"):
+            num[key] = num.get(key, 0.0) + float(
+                ((got[k].double().cpu() - r) ** 2).sum())
+            den[key] = den.get(key, 0.0) + float(
+                ((r - src[k].double().cpu()) ** 2).sum())
+    return {k: (num[k] / den[k]) ** 0.5 if den[k] else 0.0 for k in num}
+
+
+def parallel_nccl_run(here: str, tmp: str) -> dict:
+    """MRCNN_TRAINING as the mrcnn_train phase ran it (run A), once more in
+    this process (run B: the plain path's own spread, from cuDNN's
+    nondeterministic backward and the ROI samples it flips), and through
+    ``python -m torch.distributed.run --standalone --nproc_per_node 1 -m
+    m3d_torch`` (run C: one rank that joins the NCCL group torchrun sets
+    up and takes the distributed path). C's latest.msgpack must lie within
+    PAR_EPOCH_TOL of A's update (``update_gap``, all leaves); B's gap is
+    printed beside it."""
+    from m3d_torch import __main__ as cli
+    from m3d_torch.checkpoints import load_params, params_from_jax
+
+    def config(name):
+        out = os.path.join(tmp, f"out_{name}")
+        return write_config(os.path.join(tmp, "mrcnn.json"),
+                            os.path.join(tmp, f"{name}.json"),
+                            OUTPUT_DIR=out,
+                            WEIGHT_DIR=os.path.join(out, "weights"))
+
+    def latest(name):
+        return params_from_jax(load_params(os.path.join(
+            tmp, f"out_{name}", "weights", "latest.msgpack"))[0])
+
+    t = time.perf_counter()
+    cli.main(["--task", "MRCNN_TRAINING", "--config_path",
+              config("mrcnn_again")])
+    again_s = time.perf_counter() - t
+    t = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "m3d_torch", "--task",
+         "MRCNN_TRAINING", "--config_path", config("mrcnn_nccl")], cwd=here,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t
+    if run.returncode:
+        raise AssertionError(f"parallel nccl: exit {run.returncode}\n"
+                             f"{run.stdout[-3000:]}\n{run.stderr[-3000:]}")
+    epoch = [ln for ln in run.stdout.splitlines() if "[MRCNN][epoch" in ln]
+    src = params_from_jax(load_params(os.path.join(here, CHECKPOINT))[0])
+    ref = params_from_jax(load_params(os.path.join(
+        tmp, "out_mrcnn", "weights", "latest.msgpack"))[0])
+    gap_c = update_gap(latest("mrcnn_nccl"), ref, src)
+    gap_b = update_gap(latest("mrcnn_again"), ref, src)
+    phase("parallel", f"NCCL world size 1 (torchrun) MRCNN_TRAINING epoch "
+          f"{wall:.2f}s: {epoch}; latest.msgpack's gap to the mrcnn_train "
+          f"phase's update {json.dumps(gap_c)} (tol {PAR_EPOCH_TOL}); the "
+          f"same in-process run again ({again_s:.2f}s): "
+          f"{json.dumps(gap_b)}")
+    if gap_c["all"] > PAR_EPOCH_TOL:
+        raise AssertionError(f"parallel nccl: update gap {gap_c['all']} > "
+                             f"{PAR_EPOCH_TOL}")
+    return {"wall_s": wall, "gap": gap_c, "gap_same_path": gap_b}
+
+
+def parallel_run(here: str, tmp: str, smi: str, cfg, model, image, meta_b,
+                 anchors, gt_boxes, ref_m, dev, errs: dict) -> dict:
+    """The gloo twin: PAR_RANKS ranks sharing cuda:0 (NCCL refuses two
+    ranks on one device; gloo stages CUDA tensors through the host, so the
+    ranks' collective times are gloo's host copies, not NVLink's), each
+    computation held to one process on the card; then a data_parallel=2
+    monolithic bundle over cuda:0 twice. Returns the timings, the ranks'
+    launch counts and the bundle's."""
+    from m3d_torch import serve
+    from m3d_torch.config import load_config
+    from m3d_torch.parallel.dryrun import dryrun_step
+    from m3d_torch.parallel.mesh import make_mesh, spawn
+    from m3d_torch.utils.metrics import detection_recall
+
+    t0 = time.perf_counter()
+    src = os.path.join(tmp, "mrcnn.json")
+    spec = {"ckpt": os.path.join(here, CHECKPOINT),
+            "image": image.cpu().numpy(), "meta": meta_b.cpu().numpy(),
+            "anchors": anchors.cpu().numpy(),
+            "mrcnn_dp": write_config(src, os.path.join(tmp, "mrcnn_dp.json"),
+                                     IMAGES_PER_GPU=1, GPU_COUNT=PAR_RANKS),
+            "mrcnn_save": os.path.join(tmp, "par_mrcnn.pt"),
+            "pyramid_save": os.path.join(tmp, "par_pyramid.pt")}
+    t = time.perf_counter()
+    ranks = spawn(parallel_rank, PAR_RANKS, [dev] * PAR_RANKS, "gloo",
+                  args=(spec,), run_dir=tmp, timeout=900)
+    ranks_s = time.perf_counter() - t
+    for r in ranks:
+        for key, e in r["errs"].items():
+            errs[key].extend(e)
+    launches = {k: sum(r["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+    missing = [k for k in ("roialign_fc (kron)", "roialign_padded",
+                           "roialign_slab") if launches[k] < 1]
+    if missing:
+        raise AssertionError(f"parallel: kernels {missing} not launched in "
+                             f"the ranks: {launches}")
+    phase("parallel", f"{PAR_RANKS} gloo ranks on cuda:0 in {ranks_s:.2f}s;"
+          f" kernel launches {launches}, each held to its plain version")
+
+    # The MRCNN step against one process on the whole batch.
+    ref = mrcnn_first_steps(load_config(src), dev, make_mesh(),
+                            os.path.join(tmp, "one_mrcnn.pt"))
+    got_loss = ranks[0]["mrcnn"]["loss"]
+    if {r["mrcnn"]["loss"] for r in ranks} != {got_loss} or abs(
+            got_loss - ref["loss"]) > PAR_LOSS_TOL * abs(ref["loss"]):
+        raise AssertionError(f"parallel mrcnn step: losses "
+                             f"{[r['mrcnn']['loss'] for r in ranks]} vs one "
+                             f"process {ref['loss']}")
+    from m3d_torch.checkpoints import load_params, params_from_jax
+
+    start = params_from_jax(load_params(os.path.join(here, CHECKPOINT))[0])
+    one = torch.load(os.path.join(tmp, "one_mrcnn.pt"))
+    gap = update_gap(torch.load(spec["mrcnn_save"]), one, start)
+    # The one-process step again: its own spread (cuDNN's backward).
+    mrcnn_first_steps(load_config(src), dev, make_mesh(),
+                      os.path.join(tmp, "one_mrcnn_again.pt"))
+    same = update_gap(torch.load(os.path.join(tmp, "one_mrcnn_again.pt")),
+                      one, start)
+    if gap["all"] > PAR_STEP_TOL:
+        raise AssertionError(f"parallel mrcnn step: update gap {gap}")
+    phase("parallel", f"MRCNN step, global batch {PAR_RANKS}: loss "
+          f"{got_loss:.6f} vs one process {ref['loss']:.6f}; the "
+          f"parameters' gap to one process's update {json.dumps(gap)} "
+          f"(tol {PAR_STEP_TOL}), one process again {json.dumps(same)}; "
+          f"host ms a batch 1 rank {ref['host_ms']} / {PAR_RANKS} ranks "
+          f"{[r['mrcnn']['host_ms'] for r in ranks]}; step "
+          f"ms (first, second) 1 rank {ref['step_ms']} / {PAR_RANKS} ranks "
+          f"{[r['mrcnn']['step_ms'] for r in ranks]}")
+
+    # The Y-sharded pyramid against extract_features.
+    with torch.no_grad():
+        want = model.extract_features(image)
+        trunk_one_ms = cuda_ms(lambda: model.extract_features(image), 2)
+    got = torch.load(spec["pyramid_save"])
+    pyr_err = []
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        if any(r["pyramid_sums"][lvl] != ranks[0]["pyramid_sums"][lvl]
+               for r in ranks):
+            raise AssertionError(f"parallel: P{lvl + 2} differs between "
+                                 f"ranks")
+        pyr_err.append(check_close(g.to(dev), w, f"parallel pyramid "
+                                   f"P{lvl + 2} (Y over {PAR_RANKS})"))
+    phase("parallel", f"spatial trunk: layout {ranks[0]['layout']}, "
+          f"{PAR_RANKS} ranks {[r['trunk_ms'] for r in ranks]} ms vs one "
+          f"process {trunk_one_ms:.2f} ms; halo bytes gathered per rank "
+          f"{ranks[0]['halo_bytes']}")
+
+    # Spatial inference against the monolithic graph.
+    inf = ranks[0]["infer"]
+    det, valid = inf["detections"], inf["detections_valid"] > 0.5
+    det_m = ref_m["detections"].float().cpu().numpy()
+    valid_m = ref_m["detections_valid"].cpu().numpy()
+    n_gt, n_match, n_det = detection_recall(det, valid, gt_boxes, SIZE)
+    same = matched_detections(det_m, valid_m, det, valid)
+    recall = n_match / n_gt if n_gt else 0.0
+    if recall < RECALL_FLOOR or same < PAR_MATCH * valid_m.sum() or \
+            not np.isfinite(inf["mrcnn_masks"]).all():
+        raise AssertionError(f"parallel spatial inference: recall {recall}, "
+                             f"{same} of {valid_m.sum()} monolithic "
+                             f"detections matched")
+    phase("parallel", f"spatial inference: recall {recall:.4f}, {n_det} "
+          f"detections, {same} matching the monolithic graph's "
+          f"{int(valid_m.sum())} at IoU>=0.5")
+
+    # The dryrun step against its one-rank run.
+    one = dryrun_step(PAR_RANKS, None, dev)
+    dry = ranks[0]["dryrun"]
+    if abs(dry["loss"] - one["loss"]) > PAR_LOSS_TOL * abs(one["loss"]):
+        raise AssertionError(f"parallel dryrun: loss {dry['loss']} vs one "
+                             f"rank {one['loss']}")
+    phase("parallel", f"dryrun_multichip({PAR_RANKS}) step on (1, "
+          f"{PAR_RANKS}): loss {dry['loss']:.6f} vs one rank "
+          f"{one['loss']:.6f}")
+
+    # A data_parallel=2 monolithic bundle, cuda:0 twice.
+    state = model.state_dict()
+    mono = cfg.replace(CLASSIFIER_CHUNK=0, MASK_CHUNK=0)
+    with tempfile.TemporaryDirectory(prefix="m3d_dp_", dir=tmp) as d:
+        t = time.perf_counter()
+        man = serve.export_bundle(mono, state, d, batch=BATCH, device=dev,
+                                  data_parallel=PAR_RANKS,
+                                  devices=[dev] * PAR_RANKS)
+        export_s = time.perf_counter() - t
+        bundle = serve.ServingBundle.load(d, variables=state, device=dev,
+                                          devices=[dev] * PAR_RANKS)
+        reset_counts()
+        got = bundle.predict(image.cpu().numpy(), meta_b.cpu().numpy())
+        torch.cuda.synchronize()
+        dp_launches = launch_counts()
+        graph_ms = cuda_ms(lambda: bundle.run(image, meta_b), 2)
+    # Each slice's in-process twin under the Spy: every #2, #3 and #4 call
+    # at the slice's B is held to its plain version.
+    half = BATCH // PAR_RANKS
+    held = []
+    for i in range(PAR_RANKS):
+        rows = slice(i * half, (i + 1) * half)
+        reset_counts()
+        spy = Spy()
+        try:
+            with torch.no_grad():
+                want = model(image[rows], meta_b[rows], anchors)
+        finally:
+            spy.restore()
+        for key, name, check in EVAL_CHECKS:
+            for j, args in enumerate(spy.calls[name]):
+                errs[key].append(check(
+                    args, f"data_parallel={PAR_RANKS} bundle slice {i}'s "
+                    f"twin (B = {half}) captured {name} call {j}"))
+        if not all(spy.calls[n] for n in ("roialign_fc", "roialign_padded",
+                                          "roialign_slab")):
+            raise AssertionError(f"data_parallel={PAR_RANKS} bundle slice "
+                                 f"{i}'s twin did not call #2, #3 and #4")
+        held.append(held_to({k: v[rows] for k, v in got.items()}, want,
+                            f"data_parallel={PAR_RANKS} bundle, slice {i}"))
+    phase("parallel", f"data_parallel={PAR_RANKS} bundle (manifest "
+          f"data_parallel {man['data_parallel']}, chunks {man['chunks']}): "
+          f"export {export_s:.2f}s, predict {graph_ms:.2f} ms, launches "
+          f"{dp_launches}; each slice held to MaskRCNN.forward on it "
+          f"{held}")
+    wall = time.perf_counter() - t0
+    peak = [r["peak_gib"] for r in ranks]
+    print(f"[{smi}] parallel: " + json.dumps({
+        "mrcnn_step_ms_1_rank": ref["step_ms"],
+        "mrcnn_step_ms_per_rank": [r["mrcnn"]["step_ms"] for r in ranks],
+        "mrcnn_host_ms_1_rank": ref["host_ms"],
+        "mrcnn_host_ms_per_rank": [r["mrcnn"]["host_ms"] for r in ranks],
+        "spatial_trunk_ms_per_rank": [r["trunk_ms"] for r in ranks],
+        "trunk_ms_1_process": trunk_one_ms,
+        "halo_bytes_per_rank": ranks[0]["halo_bytes"],
+        "peak_gib_per_rank": peak, "ranks_s": ranks_s,
+        "data_parallel_predict_ms": graph_ms, "wall_s": wall}), flush=True)
+    return {"launches": launches, "dp_launches": dp_launches,
+            "wall_s": wall, "peak_gib": peak, "pyramid_err": pyr_err}
+
+
 def nms_check(dev) -> None:
     """nms_3d on NMS_N proposal-like boxes (above FIXPOINT_MAX_N, so the
     blockwise branch) against the numpy oracle: the kept indices must be
@@ -2515,6 +2944,131 @@ def host_cpu() -> str:
     return f"{' / '.join(names) or 'model unknown'} ({platform.machine()})"
 
 
+def load_bench_model(here: str, dev):
+    """The bench configuration's MaskRCNN on ``dev`` with the tracked
+    checkpoint; fails if a tensor is missing. Returns (cfg, model)."""
+    from m3d_torch.checkpoints import (load_params, params_from_jax,
+                                       restore_by_name)
+    from m3d_torch.models.mask_rcnn import MaskRCNN
+
+    t = time.perf_counter()
+    tree, meta = load_params(os.path.join(here, "weights",
+                                          "bench_ckpt.f16.msgpack"))
+    cfg = bench_config()
+    model = MaskRCNN.from_config(cfg, mode="inference", device=dev).eval()
+    stats = restore_by_name(model, params_from_jax(tree))
+    del tree
+    phase("load", f"{time.perf_counter() - t:.2f}s loaded={stats['loaded']} "
+          f"skipped={stats['skipped']} missing={stats['missing']} "
+          f"(checkpoint epoch {meta.get('epoch')})")
+    if stats["missing"] or stats["skipped"]:
+        raise AssertionError(f"checkpoint does not cover the model: {stats}")
+    return cfg, model
+
+
+def wall_ms(fn, reps: int, devices) -> float:
+    """Mean host-wall ms of ``fn()`` over ``reps`` runs, every device in
+    ``devices`` synchronised before and after (CUDA events on one card
+    would miss the others' work)."""
+    def sync():
+        for d in devices:
+            torch.cuda.synchronize(d)
+
+    sync()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    sync()
+    return (time.perf_counter() - t) * 1e3 / reps
+
+
+def dp_cards_main(n: int) -> int:
+    """``--dp-cards N`` (module docstring)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f"chip_smoke --dp-cards {n}: needs {n} cards, "
+              f"{torch.cuda.device_count()} available", file=sys.stderr)
+        return 1
+    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from concurrent.futures import ThreadPoolExecutor
+
+    from m3d_torch import serve
+    from m3d_torch.anchors import normalized_pyramid_anchors
+    from m3d_torch.data.synthetic import make_volumes
+    from m3d_torch.image_meta import default_meta
+    from m3d_torch.ops import roialign_compact as rc
+    from m3d_torch.ops import roialign_fc as rf
+    from m3d_torch.ops import roialign_slab as rs
+    from m3d_torch.ops.cuda_build import build_all
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    print("\n".join(smi), flush=True)
+    devs = [torch.device("cuda", i) for i in range(n)]
+    dev = devs[0]
+    build_all((rc.LIB, rf.LIB, rs.LIB))
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg, model = load_bench_model(here, dev)
+    image, _ = make_volumes(BATCH, SIZE)
+    image = torch.as_tensor(image, device=dev)
+    meta_b = torch.as_tensor(np.tile(default_meta(cfg)[None], (BATCH, 1)),
+                             device=dev)
+    anchors = torch.as_tensor(normalized_pyramid_anchors(cfg), device=dev)
+    state = model.state_dict()
+    mono = cfg.replace(CLASSIFIER_CHUNK=0, MASK_CHUNK=0)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="m3d_dpc_") as d:
+        serve.export_bundle(mono, state, d, batch=BATCH, device=dev)
+        one = serve.ServingBundle.load(d, variables=state, device=dev)
+    one.run(image, meta_b)   # warm-up
+    res["one_card_ms"] = wall_ms(lambda: one.run(image, meta_b), 5, [dev])
+    del one
+    with tempfile.TemporaryDirectory(prefix="m3d_dpc_") as d:
+        t = time.perf_counter()
+        serve.export_bundle(mono, state, d, batch=BATCH, device=dev,
+                            data_parallel=n, devices=devs)
+        res["export_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        bundle = serve.ServingBundle.load(d, variables=state, device=dev,
+                                          devices=devs)
+        res["load_s"] = time.perf_counter() - t
+    got = bundle.predict(image.cpu().numpy(), meta_b.cpu().numpy())
+    rows = BATCH // n
+    held = []
+    for i in range(n):
+        s_ = slice(i * rows, (i + 1) * rows)
+        with torch.no_grad():
+            want = model(image[s_], meta_b[s_], anchors)
+        held.append(held_to({k: v[s_] for k, v in got.items()}, want,
+                            f"data_parallel={n} bundle, slice {i} on "
+                            f"{devs[i]}"))
+    phase("dp_cards", f"data_parallel={n} bundle over {n} cards: each slice "
+          f"held to MaskRCNN.forward on it {held}")
+    res["in_turn_ms"] = wall_ms(lambda: bundle.run(image, meta_b), 5, devs)
+    xs = [(image[i * rows:(i + 1) * rows].to(c),
+           meta_b[i * rows:(i + 1) * rows].to(c)) for i, c in enumerate(devs)]
+
+    def slice_call(i):
+        with torch.no_grad():
+            return bundle._calls[i](bundle._states[i], *xs[i])
+
+    with ThreadPoolExecutor(n) as pool:   # the same graphs, a thread each
+        res["threads_ms"] = wall_ms(
+            lambda: list(pool.map(slice_call, range(n))), 5, devs)
+    res["one_slice_ms"] = wall_ms(lambda: slice_call(n - 1), 5, devs)
+    res["peak_gib_per_card"] = [torch.cuda.max_memory_allocated(c) / 2**30
+                                for c in devs]
+    print(f"[{smi[0]}] dp_cards: " + json.dumps(res), flush=True)
+    faulthandler.cancel_dump_traceback_later()
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2551,12 +3105,9 @@ def main() -> int:
     phase("env", f"host modules {host_modules}")
 
     from m3d_torch.anchors import normalized_pyramid_anchors
-    from m3d_torch.checkpoints import (load_params, params_from_jax,
-                                       restore_by_name)
     from m3d_torch.data.synthetic import make_volumes
     from m3d_torch.image_meta import default_meta
     from m3d_torch.models.inference import adaptive_inference, default_chunks
-    from m3d_torch.models.mask_rcnn import MaskRCNN
     from m3d_torch.ops import roialign3d
     from m3d_torch.ops import roialign_compact as rc
     from m3d_torch.ops import roialign_fc as rf
@@ -2580,19 +3131,8 @@ def main() -> int:
           f"kernel libraries, the native host library)")
 
     # load -------------------------------------------------------------
-    t = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    tree, meta = load_params(os.path.join(here, "weights",
-                                          "bench_ckpt.f16.msgpack"))
-    cfg = bench_config()
-    model = MaskRCNN.from_config(cfg, mode="inference", device=dev).eval()
-    stats = restore_by_name(model, params_from_jax(tree))
-    del tree
-    phase("load", f"{time.perf_counter() - t:.2f}s loaded={stats['loaded']} "
-          f"skipped={stats['skipped']} missing={stats['missing']} "
-          f"(checkpoint epoch {meta.get('epoch')})")
-    if stats["missing"] or stats["skipped"]:
-        raise AssertionError(f"checkpoint does not cover the model: {stats}")
+    cfg, model = load_bench_model(here, dev)
 
     # kernel: random batches at the bench shapes -------------------------
     meta_b = torch.as_tensor(np.tile(default_meta(cfg)[None], (BATCH, 1)),
@@ -2969,6 +3509,10 @@ def main() -> int:
                                                           errs)
         mrcnn_eval_launch, _ = eval_run(here, tmp, "mrcnn_eval", smi, errs,
                                         HEAD_WEIGHTS=mrcnn_best)
+        # parallel: NCCL at world size 1, then two gloo ranks on cuda:0
+        nccl = parallel_nccl_run(here, tmp)
+        par = parallel_run(here, tmp, smi, cfg, model, image, meta_b,
+                           anchors, gt_boxes, out_m, dev, errs)
         train_bn, bn_launch = train_bn_run(here, tmp, smi)
         h5_launch = h5_run(here, tmp, smi, errs, dev)
         print(f"[{smi}] training steps: " + json.dumps({
@@ -2991,6 +3535,9 @@ def main() -> int:
                 ("train_bn mrcnn", train_bn["mrcnn"]))},
             "rpn_split_ms": rpn_train["split"],
             "e2e_split_ms": e2e_fit["split"],
+            "parallel": {"nccl_wall_s": nccl["wall_s"],
+                         "gloo_wall_s": par["wall_s"],
+                         "peak_gib_per_rank": par["peak_gib"]},
             "mrcnn_split_ms": mrcnn["split"],
             "mrcnn_gather_ms": mrcnn["gather"],
             "native_host_split_ms": native_res["host_split_ms"],
@@ -3032,6 +3579,8 @@ def main() -> int:
             "mrcnn_train": mrcnn_launch.get(name, 0),
             "mrcnn_eval": mrcnn_eval_launch.get(name, 0),
             "train_bn": bn_launch.get(name, 0),
+            "parallel": par["launches"].get(name, 0),
+            "parallel data_parallel bundle": par["dp_launches"].get(name, 0),
             "autotune": autotune["launches"].get(name, 0),
             **{f"h5 {key}": n.get(name, 0) for key, n in h5_launch.items()},
             **{key: n.get(name, 0)
@@ -3051,4 +3600,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-cards"]:
+        sys.exit(dp_cards_main(int(sys.argv[2])))
     sys.exit(main())

@@ -293,12 +293,3 @@ def load_config(config_path: str) -> Config:
         config_dict = json.load(config_file)
     return Config(**config_dict)
 
-
-def unported_training(task: str, config) -> str | None:
-    """Why ``task`` with this config cannot run on the port yet (the
-    ROADMAP.md item that brings it), or None. Read from the config alone,
-    before any other file is touched."""
-    if int(getattr(config, "GPU_COUNT", 1)) > 1:
-        return ("GPU_COUNT > 1: multi-GPU training is not ported yet "
-                "(ROADMAP.md §1 item 6)")
-    return None

@@ -31,7 +31,10 @@ class BatchNorm(nn.Module):
     computes it) normalise the batch, and the running statistics move as
     flax moves them: ``ra = momentum * ra + (1 - momentum) * batch`` (the
     opposite convention of torch.nn.BatchNorm's momentum, and the biased
-    variance)."""
+    variance). With ``group`` (a ``m3d_torch.parallel.mesh.Axis``) the
+    batch statistics cover every rank of it: the sums and sums of squares
+    are all-reduced (with autograd) before the division, so each rank
+    normalises with the whole batch's statistics, as one process would."""
 
     def __init__(self, features: int, momentum: float = 0.99,
                  eps: float = 1e-5, dtype: torch.dtype | None = None):
@@ -40,6 +43,7 @@ class BatchNorm(nn.Module):
         self.eps = eps
         self.dtype = dtype
         self.batch_stats = False
+        self.group = None
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -49,8 +53,16 @@ class BatchNorm(nn.Module):
         xf = x.float()
         if self.batch_stats:
             axes = tuple(range(x.dim() - 1))
-            mean = xf.mean(axes)
-            var = torch.clamp_min((xf * xf).mean(axes) - mean * mean, 0.0)
+            if self.group is None or self.group.size == 1:
+                mean = xf.mean(axes)
+                var = torch.clamp_min((xf * xf).mean(axes) - mean * mean,
+                                      0.0)
+            else:
+                n = xf.numel() // xf.shape[-1] * self.group.size
+                s = self.group.all_reduce(
+                    torch.stack([xf.sum(axes), (xf * xf).sum(axes)]))
+                mean = s[0] / n
+                var = torch.clamp_min(s[1] / n - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean

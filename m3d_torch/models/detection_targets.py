@@ -12,7 +12,9 @@ The random order comes from uniforms, one per proposal for the positive
 draw and one for the negative draw, from a ``torch.Generator`` on the
 proposals' device, or injected as ``uniforms=(r_pos, r_neg)`` ([B, P] each;
 the parity tests pass JAX's ``jax.random.uniform`` values under its split
-keys, so both packages draw the same samples).
+keys, so both packages draw the same samples). A rank of a data-parallel
+mesh passes ``shard=(index, count)``: it draws the uniforms of the whole
+batch of ``count * B`` rows, as one process would, and keeps its rows.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ def detection_targets_batch(proposals, gt_class_ids, gt_boxes, gt_masks,
                             positive_iou_threshold: float,
                             negative_iou_threshold: float,
                             mask_shape=(28, 28, 28), use_mini_mask=False,
-                            generator=None, uniforms=None):
+                            generator=None, uniforms=None, shard=None):
     """proposals [B, P, 6] normalized, zero-padded; gt_class_ids [B, G]
     (0 = padding); gt_boxes [B, G, 6] normalized; gt_masks [B, H, W, D, G]
     full-size masks, or with ``use_mini_mask`` [B, mH, mW, mD, G] masks
@@ -72,8 +74,10 @@ def detection_targets_batch(proposals, gt_class_ids, gt_boxes, gt_masks,
     pos_cap = min(int(round(T * roi_positive_ratio)), n_prop)
     neg_cap = min(T, n_prop)
     if uniforms is None:
-        r_pos, r_neg = (torch.rand((bsz, n_prop), generator=generator,
-                                   device=dev) for _ in range(2))
+        index, count = shard or (0, 1)
+        r_pos, r_neg = (torch.rand((bsz * count, n_prop), generator=generator,
+                                   device=dev)[index * bsz:(index + 1) * bsz]
+                        for _ in range(2))
     else:
         r_pos, r_neg = (torch.as_tensor(u, device=dev).float()
                         for u in uniforms)

@@ -40,10 +40,14 @@ def default_chunks(model: MaskRCNN):
     return cls, mask
 
 
-def chunks_from_config(config, model: MaskRCNN):
+def chunks_from_config(config, model: MaskRCNN, auto: bool = True):
     """Config-overridable chunk sizes: CLASSIFIER_CHUNK / MASK_CHUNK keys
-    (0 = force monolithic, absent/None = the ``default_chunks`` values)."""
-    auto_cls, auto_mask = default_chunks(model)
+    (0 = force monolithic, absent/None = the ``default_chunks`` values).
+
+    ``auto=False`` drops the defaults to monolithic (None); explicit
+    config keys still win. Data-parallel serving bundles take it
+    (m3d_torch/serve.py), as JAX's: their graph is per device slice."""
+    auto_cls, auto_mask = default_chunks(model) if auto else (None, None)
 
     def pick(key, auto):
         v = getattr(config, key, None)

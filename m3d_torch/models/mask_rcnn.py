@@ -138,16 +138,19 @@ class MaskRCNN(nn.Module):
         kw.update(overrides)
         return cls(**kw).to(device)
 
-    def bn_mode(self, train: bool) -> "MaskRCNN":
+    def bn_mode(self, train: bool, group=None) -> "MaskRCNN":
         """BatchNorm on batch statistics, updating the running ones, when
         ``train`` and the model was built with ``train_bn`` (a training
         step under TRAIN_BN); else on the running statistics (every
         evaluation, proposal and targeting forward, as JAX's
-        ``clone(train_bn=False)``). Returns the model."""
+        ``clone(train_bn=False)``). ``group``: the mesh axis whose ranks
+        share the batch (data parallelism), None for one process. Returns
+        the model."""
         on = bool(train) and self.train_bn
         for m in self.modules():
             if isinstance(m, BatchNorm):
                 m.batch_stats = on
+                m.group = group
         return self
 
     # Composable stages ------------------------------------------------
@@ -224,13 +227,16 @@ class MaskRCNN(nn.Module):
                                          self.mask_pool_size)
         return self.mask_head(aligned)
 
-    def rpn_outputs(self, image, anchors):
+    def rpn_outputs(self, image, anchors, feats=None):
         """RPN forward with proposal generation (JAX
         ``MaskRCNN.forward_rpn``). image [B, H, W, D, C] and anchors [A, 6]
-        are tensors on the model's device. Returns the RPN outputs and the
-        feature maps with their graph, and the proposals made from the
-        detached outputs (JAX's ``stop_gradient`` on the proposals)."""
-        feats = self.extract_features(image.float())
+        are tensors on the model's device; ``feats``, a pyramid already
+        computed from ``image`` (the Y-sharded trunk's), replaces the
+        trunk. Returns the RPN outputs and the feature maps with their
+        graph, and the proposals made from the detached outputs (JAX's
+        ``stop_gradient`` on the proposals)."""
+        if feats is None:
+            feats = self.extract_features(image.float())
         logits, probs, deltas = self.rpn_forward(list(feats))
         with torch.no_grad():
             proposals, valid = self.propose(probs, deltas, anchors)
@@ -269,7 +275,13 @@ class MaskRCNN(nn.Module):
         proposal and detection slot is computed. image [B, H, W, D, C],
         image_meta [B, META] and anchors [A, 6] are tensors on the model's
         device. Returns the same dict as JAX's."""
-        feats = self.extract_features(image.float())
+        return self.forward_from_features(self.extract_features(
+            image.float()), image_meta, anchors)
+
+    @torch.no_grad()
+    def forward_from_features(self, feats, image_meta, anchors):
+        """``forward`` after the trunk, on the (P2..P6) pyramid ``feats``:
+        the RPN head, proposals, classifier, detections and masks."""
         _, probs, deltas = self.rpn_forward(list(feats))
         proposals, prop_valid = self.propose(probs, deltas, anchors)
         cap = int(self.head_max_rois or 0)

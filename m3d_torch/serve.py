@@ -28,13 +28,24 @@ count on the device where the eager one reads it on the host
 (a ``cond`` per ROI chunk, ``while_loop`` NMS), so its outputs equal
 in-process inference bit for bit on the CPU.
 
-``data_parallel > 1`` (JAX's sharded export) needs the multi-card mesh,
-ROADMAP.md §1 item 6, and raises until that is ported.
+``data_parallel`` n > 1 (JAX's sharded export): the batch is split over n
+devices, each running the graph on its slice with its own copy of the
+weights (devices that repeat share one), and the outputs are concatenated
+in order: JAX's mesh sharding of the batch axis with the weights
+replicated. Each device gets its own copy of the graph (moved from the card
+it was traced on). Unlike JAX's sharded call, the slices run one after
+another from the calling thread (the graph is bound by its host dispatch;
+``python3 chip_smoke.py --dp-cards N`` times it). The graph is traced at
+batch / n and is monolithic unless the config names chunk sizes
+(``chunks_from_config(auto=False)``, as JAX's). The manifest records n; a
+batch that n does not divide, and fewer devices than n, raise, naming both
+numbers.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 from typing import Any
@@ -74,21 +85,34 @@ def _device(device) -> torch.device:
     return dev
 
 
-def _refuse_data_parallel(data_parallel) -> None:
-    if data_parallel and int(data_parallel) > 1:
-        raise ValueError(f"data_parallel={data_parallel}: sharded serving "
-                         f"needs the multi-card mesh, ROADMAP.md §1 item 6, "
-                         f"not ported yet")
+def _devices(n: int, device, devices=None) -> list[torch.device]:
+    """The ``n`` devices of a data-parallel bundle: ``devices`` when given,
+    else cuda:0 .. cuda:n-1 (or the CPU n times); fewer than n raise."""
+    if devices is None:
+        dev = torch.device(device)
+        if dev.type == "cuda":
+            have = torch.cuda.device_count()
+            devices = [torch.device("cuda", i) for i in range(min(n, have))]
+        else:
+            devices = [dev] * n
+    devices = [torch.device(d) for d in devices]
+    if len(devices) < n:
+        raise ValueError(f"bundle was exported data_parallel={n}; only "
+                         f"{len(devices)} devices available")
+    return devices[:n]
 
 
-def _inference_fn(config, image_shape=None, device="cuda"):
+def _inference_fn(config, monolithic_default: bool = False,
+                  image_shape=None, device="cuda"):
     """Build (infer, chunks): infer(state, image, image_meta) -> dict.
 
     ``state`` is the model's state dict; the model itself lives on the meta
     device and ``torch.func.functional_call`` runs it on ``state``, so no
-    weight is held here. ``image_shape``: (H, W, D) override of the
-    config's nominal shape (bucketed exports); the anchors are computed for
-    it and become a constant of the graph."""
+    weight is held here. ``monolithic_default``: no default chunk sizes
+    (data-parallel exports), explicit CLASSIFIER_CHUNK / MASK_CHUNK keys
+    still win. ``image_shape``: (H, W, D) override of the config's nominal
+    shape (bucketed exports); the anchors are computed for it and become a
+    constant of the graph."""
     with torch.device("meta"):
         model = MaskRCNN.from_config(config, mode="inference",
                                      device="meta").eval()
@@ -98,7 +122,8 @@ def _inference_fn(config, image_shape=None, device="cuda"):
         config, image_shape=shape,
         voxel_z_over_y=float(getattr(config, "VOXEL_Z_OVER_Y", 1.0))),
         device=device)
-    cls_chunk, mask_chunk = chunks_from_config(config, model)
+    cls_chunk, mask_chunk = chunks_from_config(config, model,
+                                               auto=not monolithic_default)
     runner = _Runner(model, anchors, cls_chunk, mask_chunk)
 
     def infer(state, image, image_meta):
@@ -152,21 +177,29 @@ def export_program(module: torch.nn.Module, args: tuple):
 
 def export_bundle(config, variables, out_dir: str, batch: int = 1,
                   device="cuda", data_parallel: int | None = None,
-                  image_shape=None,
-                  weights_file: str | None = None) -> dict[str, Any]:
+                  image_shape=None, weights_file: str | None = None,
+                  devices=None) -> dict[str, Any]:
     """Export a serving bundle for ``config`` and ``variables`` (the model's
     state dict, as ``MaskRCNN.state_dict()`` or ``params_from_jax`` give
     it). Returns the manifest dict.
 
     ``device``: where the graph is traced and will run (the card unless
-    the caller asks for the CPU). ``weights_file``: bundle-relative path of
-    an already-written weights file to reference instead of writing one
-    (export_bucketed shares one copy across buckets).
+    the caller asks for the CPU). ``data_parallel`` n: the bundle splits
+    each batch over n devices (``devices``, default the first n of
+    ``device``'s type); ``batch`` must divide by n and n devices must
+    exist. ``weights_file``: bundle-relative path of an already-written
+    weights file to reference instead of writing one (export_bucketed
+    shares one copy across buckets).
     """
-    _refuse_data_parallel(data_parallel)
+    n = int(data_parallel or 1)
+    if batch % n:
+        raise ValueError(f"batch {batch} not divisible by data_parallel {n}")
     dev = _device(device)
+    if n > 1:
+        _devices(n, dev, devices)
     infer, (cls_chunk, mask_chunk) = _inference_fn(
-        config, image_shape=image_shape, device=dev)
+        config, monolithic_default=n > 1, image_shape=image_shape,
+        device=dev)
     if image_shape is None:
         H, W, D, C = (int(v) for v in config.IMAGE_SHAPE)
     else:
@@ -176,8 +209,9 @@ def export_bundle(config, variables, out_dir: str, batch: int = 1,
     ncls = int(config.NUM_CLASSES)
     meta = compose_image_meta(0, (H, W, D, C), (H, W, D, C),
                               (0, 0, 0, H, W, D), 1.0, [1] * ncls)
-    example = (state, torch.zeros((batch, H, W, D, C), device=dev),
-               torch.as_tensor(np.tile(meta[None], (batch, 1)), device=dev))
+    rows = batch // n   # the graph runs on one device's slice
+    example = (state, torch.zeros((rows, H, W, D, C), device=dev),
+               torch.as_tensor(np.tile(meta[None], (rows, 1)), device=dev))
     program = export_program(_Graph(infer), example)
     program.example_inputs = None  # the weights: never into graph.pt2
     del state, example
@@ -197,7 +231,7 @@ def export_bundle(config, variables, out_dir: str, batch: int = 1,
         "platforms": [dev.type],
         "chunks": {"classifier": cls_chunk, "mask": mask_chunk},
         "weights_file": weights_file,
-        "data_parallel": 1,
+        "data_parallel": n,
         "torch_version": torch.__version__,
         "output_keys": OUTPUT_KEYS,
     }
@@ -213,6 +247,16 @@ def _state_on(variables, dev) -> dict[str, torch.Tensor]:
             for k in sorted(variables)}
 
 
+def _program_on(program, dev):
+    """A copy of ``program`` (traced on one card) whose constants and
+    device arguments are on ``dev``: a data-parallel bundle's graph for
+    the slices on ``dev`` (on the CPU, a plain copy)."""
+    from torch.export.passes import move_to_device_pass
+
+    cards = {f"cuda:{i}": str(dev) for i in range(torch.cuda.device_count())}
+    return move_to_device_pass(copy.deepcopy(program), cards)
+
+
 def _read_weights(path: str) -> dict[str, torch.Tensor]:
     tree, _ = load_params(path)
     return params_from_jax(tree)
@@ -221,22 +265,39 @@ def _read_weights(path: str) -> dict[str, torch.Tensor]:
 class ServingBundle:
     """Loaded serving bundle: ``predict(image[, image_meta])`` -> dict of
     numpy arrays. The graph runs through ``ExportedProgram.module()``;
-    weights are moved to the device once, at load."""
+    weights are moved to the device once, at load: to each of the
+    ``data_parallel`` devices (one copy of the weights and of the graph
+    per distinct device)."""
 
-    def __init__(self, program, variables, manifest: dict, device):
+    def __init__(self, program, variables, manifest: dict, device,
+                 devices=None):
         self.manifest = manifest
         self.device = torch.device(device)
         self.program = program
         self._call = program.module()
-        self._state = _state_on(variables, self.device)
+        n = int(manifest.get("data_parallel", 1))
+        self.devices = (_devices(n, self.device, devices) if n > 1
+                        else [self.device])
+        names = [str(d) for d in self.devices]
+        states, calls = {}, {}
+        for d, name in zip(self.devices, names):
+            if name not in states:
+                states[name] = _state_on(variables, d)
+                calls[name] = (_program_on(program, d).module() if n > 1
+                               else self._call)
+        self._states = [states[name] for name in names]
+        self._calls = [calls[name] for name in names]
+        self._state = self._states[0]
 
     @classmethod
-    def load(cls, path: str, variables=None,
-             device="cuda") -> "ServingBundle":
+    def load(cls, path: str, variables=None, device="cuda",
+             devices=None) -> "ServingBundle":
         """``variables``: a pre-loaded state dict to use instead of reading
         the bundle's weights file (ServingRouter shares one copy across its
         sub-bundles). ``device``: where the graph runs; it must be a device
-        type the manifest lists."""
+        type the manifest lists. ``devices``: a ``data_parallel`` n bundle's
+        n devices (default: the first n of ``device``'s type; fewer
+        raise)."""
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
         if manifest.get("format") != BUNDLE_FORMAT:
@@ -252,7 +313,7 @@ class ServingBundle:
             wf = manifest.get("weights_file") or "weights.msgpack"
             variables = _read_weights(os.path.normpath(os.path.join(path,
                                                                     wf)))
-        return cls(program, variables, manifest, dev)
+        return cls(program, variables, manifest, dev, devices)
 
     def default_meta(self) -> np.ndarray:
         """Meta batch for unpadded volumes of the bundle's exported shape
@@ -264,10 +325,29 @@ class ServingBundle:
         return np.tile(meta[None], (int(self.manifest["batch"]), 1))
 
     def run(self, image: torch.Tensor, image_meta: torch.Tensor) -> dict:
-        """The graph on tensors already on the bundle's device; returns the
-        output tensors there (``predict`` without the host copies)."""
-        with torch.no_grad():
-            return self._call(self._state, image, image_meta)
+        """The graph on tensors on the bundle's (first) device; returns the
+        output tensors there (``predict`` without the host copies). A
+        data-parallel bundle runs slice i of the batch on device i and
+        concatenates the slices' outputs in order. The slices run one
+        after another from this thread: the graph is bound by its host
+        dispatch, and a host thread a slice was slower (on four H100s
+        617.9-628.9 ms a batch of 4 against 181.1-250.9 in turn)."""
+        n = len(self.devices)
+        if n == 1:
+            with torch.no_grad():
+                return self._call(self._state, image, image_meta)
+        rows = image.shape[0] // n
+
+        def one(i):
+            d, lo = self.devices[i], i * rows
+            with torch.no_grad():
+                return self._calls[i](self._states[i],
+                                      image[lo:lo + rows].to(d),
+                                      image_meta[lo:lo + rows].to(d))
+
+        outs = [one(i) for i in range(n)]
+        return {k: torch.cat([o[k].to(self.device) for o in outs])
+                for k in outs[0]}
 
     def predict(self, image, image_meta=None) -> dict[str, np.ndarray]:
         image = np.asarray(image, np.float32)
@@ -296,9 +376,8 @@ def export_bucketed(config, variables, out_dir: str, volume_shapes,
     exports as there are distinct buckets. Writes ``router.json``, one
     weights file shared by every bucket and one bundle directory per
     bucket; returns the router manifest. Extra kwargs go to export_bundle
-    (device, data_parallel).
+    (device, data_parallel, devices).
     """
-    _refuse_data_parallel(export_kw.get("data_parallel"))
     buckets = sorted({bucket_image_shape(s) for s in volume_shapes})
     os.makedirs(out_dir, exist_ok=True)
     save_params(os.path.join(out_dir, "weights.msgpack"),
@@ -333,20 +412,24 @@ class ServingRouter:
     cached and share one weights copy.
     """
 
-    def __init__(self, path: str, router: dict, device="cuda"):
+    def __init__(self, path: str, router: dict, device="cuda",
+                 devices=None):
         self._path = path
         self.router = router
         self.device = device
+        self.devices = devices
         self._bundles: dict[str, ServingBundle] = {}
         self._variables = None
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "ServingRouter":
+    def load(cls, path: str, device="cuda", devices=None) -> "ServingRouter":
+        """``devices``: as ``ServingBundle.load``'s, for data-parallel
+        sub-bundles."""
         with open(os.path.join(path, "router.json")) as f:
             router = json.load(f)
         if router.get("format") != ROUTER_FORMAT:
             raise ValueError(f"not a serving router: {path}")
-        return cls(path, router, device)
+        return cls(path, router, device, devices)
 
     def _bundle(self, key: str) -> ServingBundle:
         if key not in self._bundles:
@@ -362,7 +445,7 @@ class ServingRouter:
                     torch.device(self.device))
             self._bundles[key] = ServingBundle.load(
                 os.path.join(self._path, sub), variables=self._variables,
-                device=self.device)
+                device=self.device, devices=self.devices)
         return self._bundles[key]
 
     def predict_volume(self, volume, image_id: int = 0):
@@ -432,10 +515,9 @@ def main(argv=None) -> dict:
                     help="where the graph is traced and runs (default: the "
                          "card)")
     ap.add_argument("--data_parallel", type=int, default=0,
-                    help="shard over an n-card mesh (ROADMAP.md §1 item 6: "
-                         "refused until ported)")
+                    help="split each batch over n cards (--batch must "
+                         "divide by n)")
     args = ap.parse_args(argv)
-    _refuse_data_parallel(args.data_parallel)
     _device(args.device)
 
     from m3d_torch.checkpoints import restore_weights
@@ -448,7 +530,8 @@ def main(argv=None) -> dict:
     stats = restore_weights(model, args.weights)
     print(f"restored weights: {stats}")
     manifest = export_bundle(config, model.state_dict(), args.out,
-                             batch=args.batch, device=args.device)
+                             batch=args.batch, device=args.device,
+                             data_parallel=args.data_parallel)
     print(f"bundle written to {args.out} (chunks={manifest['chunks']}, "
           f"platforms={manifest['platforms']})")
     return manifest

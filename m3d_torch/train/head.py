@@ -20,6 +20,13 @@ a fixed seed (SEED + 99).
 Losses are weighted by LOSS_WEIGHTS; the validation loss (or the training
 loss without a validation split) gates ``BestAndLatest`` (minimise),
 ReduceLROnPlateau and EarlyStopping.
+
+GPU_COUNT > 1 (m3d_torch/parallel/mesh.py): each rank takes its rows of
+every training and validation batch and of the targets' uniforms; the
+losses read the whole batch's head outputs and targets (gathered over
+``data``), the gradients are summed over the ranks, so every rank makes one
+process's update and sees the whole batch's metrics. Rank 0 alone writes
+checkpoints and telemetry.
 """
 
 from __future__ import annotations
@@ -33,7 +40,6 @@ import torch
 from m3d_torch.anchors import normalized_pyramid_anchors
 from m3d_torch.checkpoints import (BestAndLatest, params_to_jax,
                                    restore_weights)
-from m3d_torch.config import unported_training
 from m3d_torch.data.datasets import ToyDataset, ToyHeadDataset
 from m3d_torch.data.generators import (HeadGenerator, RPNGenerator,
                                        prefetch_to_device, to_device)
@@ -41,6 +47,8 @@ from m3d_torch.models import losses as L
 from m3d_torch.models.detection_targets import detection_targets_batch
 from m3d_torch.models.mask_rcnn import MaskRCNN, init_params
 from m3d_torch.ops.roialign3d import pyramid_roi_align_auto
+from m3d_torch.parallel.mesh import (make_mesh, replicate, scale_loss,
+                                     shard_batch, sync_grads)
 from m3d_torch.train.optim import (EarlyStopping, ReduceLROnPlateau,
                                    Optimizer, apply_constraints,
                                    get_learning_rate, set_learning_rate)
@@ -58,7 +66,15 @@ def _is_frozen_for_e2e(path: str) -> bool:
                    for seg in path.replace("/", ".").split("."))
 
 
-def head_losses(config, outputs, batch, active_class_ids):
+def head_losses(config, outputs, batch, active_class_ids, data=None):
+    """The weighted head losses and their metrics. ``data``: the mesh axis
+    whose ranks hold the other rows of the batch; the losses then read the
+    whole batch's outputs and targets."""
+    if data is not None:
+        outputs = {k: data.all_gather(v) for k, v in outputs.items()}
+        batch = {k: data.all_gather(batch[k]) for k in (
+            "target_class_ids", "target_bbox", "target_mask")}
+        active_class_ids = data.all_gather(active_class_ids)
     lw = config.LOSS_WEIGHTS
     lc, mc = L.mrcnn_class_loss(batch["target_class_ids"],
                                 outputs["mrcnn_class_logits"],
@@ -76,8 +92,9 @@ def head_losses(config, outputs, batch, active_class_ids):
 
 
 class HeadTrainer:
-    def __init__(self, config, device="cuda"):
+    def __init__(self, config, device="cuda", mesh=None):
         self.config = config
+        self._mesh = mesh
         self.device = torch.device(device)
         self.model = MaskRCNN.from_config(config, mode="training",
                                           device=self.device).eval()
@@ -87,6 +104,14 @@ class HeadTrainer:
         )
         self._anchors_dev = torch.as_tensor(self.anchors, device=self.device)
         self.clock = StepClock(self.device)
+
+    @property
+    def mesh(self):
+        """The data-parallel mesh (``make_mesh(config)``), made at first
+        use."""
+        if self._mesh is None:
+            self._mesh = make_mesh(self.config)
+        return self._mesh
 
     def init_variables(self, require_rpn=False):
         """Seeded weights (SEED), then RPN_WEIGHTS and HEAD_WEIGHTS restored
@@ -106,7 +131,7 @@ class HeadTrainer:
             if path:
                 stats = restore_weights(self.model, path)
                 print(f"[HeadTrainer] restored {path}: {stats}")
-        return self.model
+        return replicate(self.mesh, self.model)
 
     # Head-only ---------------------------------------------------------
     def preflight_targets(self, gen, num_batches: int = 10):
@@ -135,13 +160,14 @@ class HeadTrainer:
     def _head_only_outputs(self, batch, train: bool):
         """The heads on the batch's pre-aligned features. Returns (loss,
         metrics)."""
-        model = self.model.bn_mode(train)
+        data = self.mesh.axis("data")
+        model = self.model.bn_mode(train, data)
         out = model.forward_heads(batch["rois_aligned"],
                                   batch["mask_aligned"])
         active = torch.ones((batch["rois_aligned"].shape[0],
                              int(self.config.NUM_CLASSES)),
                             device=self.device)
-        return head_losses(self.config, out, batch, active)
+        return head_losses(self.config, out, batch, active, data)
 
     def make_head_only_step(self, opt):
         """batch -> metrics (floats): one head-only step, the optimiser
@@ -152,7 +178,8 @@ class HeadTrainer:
             for p in params.values():
                 p.grad = None
             loss, metrics = self._head_only_outputs(batch, True)
-            loss.backward()
+            scale_loss(self.mesh, loss).backward()
+            sync_grads(self.mesh, params.values())
             opt.step()
             apply_constraints(params)
             return read_metrics(metrics)
@@ -172,9 +199,6 @@ class HeadTrainer:
         """Head-only training on DATA_DIR's target artifacts. Returns
         (model, history of epoch metrics)."""
         cfg = self.config
-        why = unported_training("HEAD_TRAINING", cfg)
-        if why:
-            raise NotImplementedError(why)
         train_ds = ToyHeadDataset()
         train_ds.load_dataset(cfg.DATA_DIR, is_train=True)
         train_ds.prepare()
@@ -210,6 +234,7 @@ class HeadTrainer:
         """Frozen trunk -> targets -> both ROIAligns (no gradient), then
         the heads (with gradients when enabled). Returns (loss, metrics)."""
         cfg, model = self.config, self.model
+        data = self.mesh.axis("data")
         with torch.no_grad():
             rpn_out = model.forward_rpn(batch["image"], self._anchors_dev)
             targets = detection_targets_batch(
@@ -218,7 +243,8 @@ class HeadTrainer:
                 int(cfg.TRAIN_ROIS_PER_IMAGE), float(cfg.ROI_POSITIVE_RATIO),
                 float(cfg.RPN_POSITIVE_IOU), float(cfg.RPN_NEGATIVE_IOU),
                 tuple(int(v) for v in cfg.MASK_SHAPE),
-                use_mini_mask=bool(cfg.USE_MINI_MASK), generator=generator)
+                use_mini_mask=bool(cfg.USE_MINI_MASK), generator=generator,
+                shard=(data.index, data.size))
             feats = [f.detach() for f in rpn_out["feature_maps"][:4]]
             meta = batch["image_meta"].float()
             ra = pyramid_roi_align_auto(targets["rois"], meta, feats,
@@ -231,8 +257,9 @@ class HeadTrainer:
                       "target_mask": targets["masks"]}
         active = torch.ones((batch["image"].shape[0], int(cfg.NUM_CLASSES)),
                             device=self.device)
-        loss, metrics = head_losses(cfg, out, head_batch, active)
-        metrics["pos_count"] = targets["pos_count"].float().mean()
+        loss, metrics = head_losses(cfg, out, head_batch, active, data)
+        metrics["pos_count"] = data.all_gather(
+            targets["pos_count"]).float().mean()
         return loss, metrics
 
     def make_e2e_step(self, opt, generator):
@@ -244,7 +271,8 @@ class HeadTrainer:
             for p in params.values():
                 p.grad = None
             loss, metrics = self._e2e_outputs(batch, generator)
-            loss.backward()
+            scale_loss(self.mesh, loss).backward()
+            sync_grads(self.mesh, params.values())
             opt.step()
             apply_constraints(params, frozen_predicate=_is_frozen_for_e2e)
             return read_metrics(metrics)
@@ -267,9 +295,6 @@ class HeadTrainer:
         """One pass of the generator per epoch, up to E2E_VAL_STEPS
         validation batches. Returns (model, history of epoch metrics)."""
         cfg = self.config
-        why = unported_training("HEAD_TRAINING", cfg)
-        if why:
-            raise NotImplementedError(why)
         if bool(getattr(cfg, "TRAIN_BN", False)):
             raise ValueError(
                 "TRAIN_BN=true is not supported in e2e head training: the "
@@ -314,13 +339,16 @@ def train_loop(trainer, model, gen, val_gen, opt, step_fn, eval_fn,
     ``eval_fn``; the validation loss, or the training loss without
     ``val_gen``, gates BestAndLatest (minimise; metadata ``kind``),
     ReduceLROnPlateau and EarlyStopping(15); a telemetry snapshot per
-    epoch. Returns (model, history of epoch metrics)."""
-    cfg, tag = trainer.config, kind.upper()
+    epoch. Under a data-parallel mesh each rank takes its rows of every
+    batch and only rank 0 writes files. Returns (model, history of epoch
+    metrics)."""
+    cfg, tag, mesh = trainer.config, kind.upper(), trainer.mesh
     save_dir = cfg.WEIGHT_DIR or os.path.join(cfg.OUTPUT_DIR, "weights")
-    ckpt = BestAndLatest(save_dir, mode="min")
+    ckpt = BestAndLatest(save_dir, mode="min") if mesh.is_main else None
     reduce_lr = ReduceLROnPlateau(mode="min")
     early = EarlyStopping(patience=15, mode="min")
-    it = prefetch_to_device(iter(gen), trainer.device,
+    it = prefetch_to_device((shard_batch(mesh, b) for b in iter(gen)),
+                            trainer.device,
                             int(getattr(cfg, "PREFETCH_BUFFERS", 2)))
     profiler = EpochProfiler(cfg)
     history = []
@@ -340,22 +368,27 @@ def train_loop(trainer, model, gen, val_gen, opt, step_fn, eval_fn,
             vit = iter(val_gen.reset())
             vals: dict[str, list] = {}
             for _ in range(min(val_steps, len(val_gen))):
-                batch = to_device(next(vit), trainer.device)
+                batch = to_device(shard_batch(mesh, next(vit)),
+                                  trainer.device)
                 for k, v in eval_fn(batch).items():
                     vals.setdefault(f"val_{k}", []).append(v)
             epoch_metrics.update(
                 {k: float(np.mean(v)) for k, v in vals.items()})
 
         gate = epoch_metrics.get("val_loss", epoch_metrics["loss"])
-        ckpt.update(epoch, params_to_jax(model.state_dict()), gate,
-                    metadata={"kind": kind, "epoch": epoch})
+        if ckpt is not None:
+            ckpt.update(epoch, params_to_jax(model.state_dict()), gate,
+                        metadata={"kind": kind, "epoch": epoch})
         new_lr = reduce_lr.update(gate, lr)
         if new_lr != lr:
             lr = new_lr
             set_learning_rate(opt, lr)
         epoch_metrics["lr"] = lr
-        trainer.telemetry.snapshot_and_reset(epoch, save_dir,
-                                             extra=epoch_metrics)
+        if mesh.is_main:
+            trainer.telemetry.snapshot_and_reset(epoch, save_dir,
+                                                 extra=epoch_metrics)
+        else:
+            trainer.telemetry.reset()
         print(f"[{tag}][epoch {epoch}] loss={epoch_metrics['loss']:.4f} "
               f"gate={gate:.4f} dice={epoch_metrics.get('mask_dice', 0):.3f}"
               f" lr={lr:.2e} ({time.time() - t0:.1f}s)")

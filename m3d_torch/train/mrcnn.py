@@ -16,6 +16,12 @@ differentiable gather, as JAX's XLA gather. The validation step (up to 4
 batches, no augmentation, the same batches every epoch) runs BatchNorm on
 running statistics and draws its targets from SEED + 99 on every call;
 its loss gates ``BestAndLatest``, ReduceLROnPlateau and EarlyStopping.
+GPU_COUNT > 1 (m3d_torch/parallel/mesh.py): each rank takes its rows of
+every batch and of the targets' uniforms, the losses read the whole
+batch's outputs and targets (gathered over ``data``, with autograd), the
+gradients are summed over the ranks and BatchNorm's batch statistics
+under TRAIN_BN are the whole batch's: every rank makes one process's
+update. Rank 0 alone writes checkpoints and telemetry.
 
 ``evaluate`` (MRCNN_EVALUATION): per-image adaptive inference on the
 device -> confidence / size / host-NMS filter cascade -> mask unmolding ->
@@ -40,7 +46,7 @@ import torch
 
 from m3d_torch.anchors import normalized_pyramid_anchors
 from m3d_torch.checkpoints import autoconfigure_heads, restore_weights
-from m3d_torch.config import resolve_auto_confidence, unported_training
+from m3d_torch.config import resolve_auto_confidence
 from m3d_torch.data.datasets import ToyDataset
 from m3d_torch.data.generators import MrcnnGenerator
 from m3d_torch.models import losses as L
@@ -48,6 +54,8 @@ from m3d_torch.models.detection_targets import detection_targets_batch
 from m3d_torch.models.inference import adaptive_inference, chunks_from_config
 from m3d_torch.models.mask_rcnn import MaskRCNN, init_params
 from m3d_torch.ops.roialign3d import pyramid_roi_align_auto
+from m3d_torch.parallel.mesh import (make_mesh, replicate, scale_loss,
+                                     sync_grads)
 from m3d_torch.train.head import head_losses, train_loop
 from m3d_torch.train.optim import Optimizer, apply_constraints
 from m3d_torch.train.profiling import StepClock
@@ -81,8 +89,9 @@ def _freeze_predicate(learning_layers: str):
 
 
 class MrcnnTrainer:
-    def __init__(self, config, device="cuda"):
+    def __init__(self, config, device="cuda", mesh=None):
         self.config = config
+        self._mesh = mesh
         self.device = torch.device(device)
         # Adapt head hyperparameters to whatever widths the checkpoints were
         # trained with (reference H5 introspection, core/models.py:5496-5502).
@@ -102,6 +111,14 @@ class MrcnnTrainer:
         self.times: list[dict] = []
         self._now: dict = {}
 
+    @property
+    def mesh(self):
+        """The data-parallel mesh (``make_mesh(config)``), made at first
+        use: evaluation never shards."""
+        if self._mesh is None:
+            self._mesh = make_mesh(self.config)
+        return self._mesh
+
     def init_variables(self, model):
         """Seeded weights (SEED), then RPN_WEIGHTS, HEAD_WEIGHTS and
         MASK_WEIGHTS restored by name in that order. Returns the model."""
@@ -118,25 +135,31 @@ class MrcnnTrainer:
     # ------------------------------------------------------------------
     # Training
     # ------------------------------------------------------------------
-    def _outputs(self, model, batch, generator, train: bool):
+    def _outputs(self, model, batch, generator, train: bool, trunk=None):
         """The full graph's loss on a batch: RPN losses, targets from the
-        detached proposals, both ROIAligns, head losses. Returns (loss,
-        metrics)."""
+        detached proposals, both ROIAligns, head losses. ``trunk``: image
+        -> pyramid in place of the model's own (the dryrun's Y-sharded
+        one). Returns (loss, metrics)."""
         cfg = self.config
         lw = cfg.LOSS_WEIGHTS
-        model.bn_mode(train)
-        rpn_out = model.rpn_outputs(batch["image"], self._anchors_dev)
-        lrc, mrc = L.rpn_class_loss(batch["rpn_match"],
-                                    rpn_out["rpn_class_logits"])
-        lrb, mrb = L.rpn_bbox_loss(batch["rpn_bbox"], batch["rpn_match"],
-                                   rpn_out["rpn_bbox"])
+        data = self.mesh.axis("data")
+        whole = data.all_gather   # this rank's rows -> the batch
+        model.bn_mode(train, data)
+        rpn_out = model.rpn_outputs(
+            batch["image"], self._anchors_dev,
+            None if trunk is None else trunk(batch["image"]))
+        match = whole(batch["rpn_match"])
+        lrc, mrc = L.rpn_class_loss(match, whole(rpn_out["rpn_class_logits"]))
+        lrb, mrb = L.rpn_bbox_loss(whole(batch["rpn_bbox"]), match,
+                                   whole(rpn_out["rpn_bbox"]))
         targets = detection_targets_batch(
             rpn_out["proposals"], batch["gt_class_ids"], batch["gt_boxes"],
             batch["gt_masks"], cfg.BBOX_STD_DEV,
             int(cfg.TRAIN_ROIS_PER_IMAGE), float(cfg.ROI_POSITIVE_RATIO),
             float(cfg.RPN_POSITIVE_IOU), float(cfg.RPN_NEGATIVE_IOU),
             tuple(int(v) for v in cfg.MASK_SHAPE),
-            use_mini_mask=bool(cfg.USE_MINI_MASK), generator=generator)
+            use_mini_mask=bool(cfg.USE_MINI_MASK), generator=generator,
+            shard=(data.index, data.size))
         feats = list(rpn_out["feature_maps"][:4])
         meta = batch["image_meta"].float()
         ra, ma = (pyramid_roi_align_auto(targets["rois"], meta, feats, int(q))
@@ -147,7 +170,7 @@ class MrcnnTrainer:
                       "target_mask": targets["masks"]}
         active = torch.ones((batch["image"].shape[0], int(cfg.NUM_CLASSES)),
                             device=self.device)
-        head_loss, metrics = head_losses(cfg, out, head_batch, active)
+        head_loss, metrics = head_losses(cfg, out, head_batch, active, data)
         loss = (float(lw.get("rpn_class_loss", 1.0)) * lrc
                 + float(lw.get("rpn_bbox_loss", 1.0)) * lrb + head_loss)
         metrics.update(mrc)
@@ -159,7 +182,7 @@ class MrcnnTrainer:
         """Weights, the frozen leaves (LEARNING_LAYERS) without gradients,
         and the optimiser over the others. Returns the optimiser."""
         frozen = _freeze_predicate(self.config.LEARNING_LAYERS)
-        self.init_variables(model)
+        replicate(self.mesh, self.init_variables(model))
         for name, p in model.named_parameters():
             p.requires_grad_(frozen is None or not frozen(name))
         return Optimizer(self.config, dict(model.named_parameters()),
@@ -174,7 +197,8 @@ class MrcnnTrainer:
             for p in params.values():
                 p.grad = None
             loss, metrics = self._outputs(model, batch, generator, True)
-            loss.backward()
+            scale_loss(self.mesh, loss).backward()
+            sync_grads(self.mesh, params.values())
             opt.step()
             apply_constraints(params, frozen_predicate=frozen)
             return read_metrics(metrics)
@@ -198,9 +222,6 @@ class MrcnnTrainer:
         """One pass of the generator per epoch, up to VAL_STEPS validation
         batches. Returns (model, history of epoch metrics)."""
         cfg = self.config
-        why = unported_training("MRCNN_TRAINING", cfg)
-        if why:
-            raise NotImplementedError(why)
         model = MaskRCNN.from_config(cfg, mode="training",
                                      device=self.device).eval()
         self.model = model

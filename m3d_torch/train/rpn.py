@@ -13,6 +13,14 @@ in JAX), then per epoch ``rpn_evaluation`` on the test split, which gates
 ``BestAndLatest`` (maximise the summed detection score), ReduceLROnPlateau,
 EarlyStopping and a telemetry snapshot.
 
+GPU_COUNT > 1 (``mesh``, m3d_torch/parallel/mesh.py): each rank takes its
+rows of every generator batch, the losses read the outputs of the whole
+batch (gathered over ``data``), the gradients are summed over the ranks,
+and BatchNorm's batch statistics under TRAIN_BN are the whole batch's; so
+every rank makes one process's update. Rank 0 alone evaluates (its
+numbers are broadcast, so every rank takes the same gate decisions),
+writes checkpoints and telemetry, and runs AUTO_TUNE_RPN.
+
 ``head_target_generation`` (TARGET_GENERATION): per image of each split,
 the RPN's proposals (no gradient), ``detection_targets_batch`` with
 uniforms from a ``torch.Generator`` seeded from SEED, and both ROIAligns
@@ -34,7 +42,6 @@ import torch
 from m3d_torch.anchors import normalized_pyramid_anchors
 from m3d_torch.checkpoints import (BestAndLatest, params_to_jax,
                                    restore_weights)
-from m3d_torch.config import unported_training
 from m3d_torch.data.datasets import ToyDataset
 from m3d_torch.data.generators import (RPNGenerator, prefetch_to_device,
                                        to_device)
@@ -42,6 +49,9 @@ from m3d_torch.models import losses as L
 from m3d_torch.models.detection_targets import detection_targets_batch
 from m3d_torch.models.mask_rcnn import MaskRCNN, init_params
 from m3d_torch.ops.roialign3d import pyramid_roi_align_auto
+from m3d_torch.parallel.mesh import (broadcast_object, make_mesh,
+                                     replicate, scale_loss, shard_batch,
+                                     sync_grads)
 from m3d_torch.train.optim import (EarlyStopping, ReduceLROnPlateau,
                                    Optimizer, get_learning_rate,
                                    set_learning_rate)
@@ -61,8 +71,9 @@ def read_metrics(metrics: dict) -> dict:
 
 
 class RPNTrainer:
-    def __init__(self, config, device="cuda"):
+    def __init__(self, config, device="cuda", mesh=None):
         self.config = config
+        self._mesh = mesh
         h, w = int(config.IMAGE_SHAPE[0]), int(config.IMAGE_SHAPE[1])
         if h % 64 or w % 64:
             raise ValueError("IMAGE_SHAPE height & width must be multiples of 64")
@@ -75,6 +86,14 @@ class RPNTrainer:
         self.telemetry = Telemetry(config)
         self.clock = StepClock(self.device)
         self.target_times: list[dict] = []
+
+    @property
+    def mesh(self):
+        """The data-parallel mesh (``make_mesh(config)``), made at first
+        use: the evaluation and targeting tasks never shard."""
+        if self._mesh is None:
+            self._mesh = make_mesh(self.config)
+        return self._mesh
 
     def prepare_datasets(self):
         cfg = self.config
@@ -104,21 +123,23 @@ class RPNTrainer:
         """batch (tensors on the device) -> metrics (floats): one forward
         (BatchNorm on batch statistics under TRAIN_BN, which updates the
         running ones), backward and optimiser step."""
-        model, lw = self.model, self.config.LOSS_WEIGHTS
+        model, lw, mesh = self.model, self.config.LOSS_WEIGHTS, self.mesh
         w_class = float(lw.get("rpn_class_loss_override", 1.0))
         w_bbox = float(lw.get("rpn_bbox_loss_override", 1.5))
+        whole = mesh.axis("data").all_gather   # this rank's rows -> batch
 
         def train_step(batch):
             for p in model.parameters():
                 p.grad = None
-            model.bn_mode(True)
+            model.bn_mode(True, mesh.axis("data"))
             out = model.forward_rpn_train(batch["image"])
-            lc, mc = L.rpn_class_loss(batch["rpn_match"],
-                                      out["rpn_class_logits"])
-            lb, mb = L.rpn_bbox_loss(batch["rpn_bbox"], batch["rpn_match"],
-                                     out["rpn_bbox"])
+            match = whole(batch["rpn_match"])
+            lc, mc = L.rpn_class_loss(match, whole(out["rpn_class_logits"]))
+            lb, mb = L.rpn_bbox_loss(whole(batch["rpn_bbox"]), match,
+                                     whole(out["rpn_bbox"]))
             loss = w_class * lc + w_bbox * lb
-            loss.backward()
+            scale_loss(mesh, loss).backward()
+            sync_grads(mesh, model.parameters())
             opt.step()
             return read_metrics({**mc, **mb, "loss": loss})
 
@@ -150,15 +171,13 @@ class RPNTrainer:
         (whose RPN head width follows the ratio count) and the anchors are
         rebuilt before the generator, so RPN_WEIGHTS leaves whose shape
         changed are sliced or skipped, as in JAX."""
-        cfg = self.config
-        why = unported_training("RPN_TRAINING", cfg)
-        if why:
-            raise NotImplementedError(why)
+        cfg, mesh = self.config, self.mesh
         train_ds, test_ds = self.prepare_datasets()
         if getattr(cfg, "AUTO_TUNE_RPN", False):
             from m3d_torch.train.autotune import autotune_rpn
 
-            patch = autotune_rpn(train_ds, cfg)
+            patch = broadcast_object(mesh, autotune_rpn(train_ds, cfg)
+                                     if mesh.is_main else None)
             if patch and getattr(cfg, "AUTO_TUNE_APPLY", False):
                 for k, v in patch.items():
                     setattr(cfg, k, v)
@@ -173,17 +192,18 @@ class RPNTrainer:
         gen = RPNGenerator(train_ds, cfg, mode="training",
                            seed=int(getattr(cfg, "SEED", 0)),
                            telemetry=self.telemetry)
-        model = self.init_variables()
+        model = replicate(mesh, self.init_variables())
         params = dict(model.named_parameters())
         opt = Optimizer(cfg, params)
         train_step = self.make_train_step(opt)
 
         save_dir = cfg.WEIGHT_DIR or os.path.join(cfg.OUTPUT_DIR, "weights")
-        ckpt = BestAndLatest(save_dir, mode="max")
+        ckpt = BestAndLatest(save_dir, mode="max") if mesh.is_main else None
         reduce_lr = ReduceLROnPlateau(mode="max")
         early = EarlyStopping(patience=15, mode="max")
         steps = len(gen)
-        it = prefetch_to_device(iter(gen), self.device,
+        it = prefetch_to_device((shard_batch(mesh, b) for b in iter(gen)),
+                                self.device,
                                 int(getattr(cfg, "PREFETCH_BUFFERS", 2)))
         profiler = EpochProfiler(cfg)
         history = []
@@ -201,19 +221,23 @@ class RPNTrainer:
 
             # Proposal quality on the test split; telemetry gets the
             # proposal / GT geometry.
-            epoch_metrics.update(rpn_evaluation(
+            epoch_metrics.update(broadcast_object(mesh, rpn_evaluation(
                 self.make_proposal_fn(), test_ds, cfg, max_images=EVAL_IMAGES,
-                telemetry=self.telemetry))
+                telemetry=self.telemetry) if mesh.is_main else None))
             score = epoch_metrics["detection_score"]
-            ckpt.update(epoch, params_to_jax(model.state_dict()), score,
-                        metadata={"kind": "rpn", "epoch": epoch})
+            if ckpt is not None:
+                ckpt.update(epoch, params_to_jax(model.state_dict()), score,
+                            metadata={"kind": "rpn", "epoch": epoch})
             new_lr = reduce_lr.update(score, lr)
             if new_lr != lr:
                 lr = new_lr
                 set_learning_rate(opt, lr)
             epoch_metrics["lr"] = lr
-            self.telemetry.snapshot_and_reset(epoch, save_dir,
-                                              extra=epoch_metrics)
+            if mesh.is_main:
+                self.telemetry.snapshot_and_reset(epoch, save_dir,
+                                                  extra=epoch_metrics)
+            else:
+                self.telemetry.reset()
             print(f"[RPN][epoch {epoch}] loss={epoch_metrics['loss']:.4f} "
                   f"det_score={score:.1f} lr={lr:.2e} "
                   f"({time.time() - t0:.1f}s)")

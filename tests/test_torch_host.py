@@ -246,7 +246,8 @@ def test_port_imports_without_jax_flax_msgpack_pandas(tmp_path):
         "import m3d_torch.train.head, m3d_torch.train.autotune\n"
         "import m3d_torch.native, m3d_torch.utils.h5read\n"
         "import m3d_torch.utils.h5_import, m3d_torch.utils.mrcio\n"
-        "import m3d_torch.serve\n"
+        "import m3d_torch.serve, m3d_torch.parallel.mesh\n"
+        "import m3d_torch.parallel.spatial, m3d_torch.parallel.dryrun\n"
         "from m3d_torch.data.synthetic import generate_experiment\n"
         "from m3d_torch.data.datasets import ToyDataset\n"
         "from m3d_torch.utils.tiffio import imread_volume\n"

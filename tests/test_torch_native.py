@@ -4,9 +4,13 @@ plain versions, the build's failure path, and the port's MRC IO
 (m3d_torch/utils/mrcio.py) against m3d's.
 """
 
+import ctypes
+import fcntl
 import os
 import shutil
 import struct
+import subprocess
+import tempfile
 
 import numpy as np
 import pytest
@@ -20,15 +24,58 @@ from m3d_torch.utils import tiffio as T_tiff
 from m3d_torch.utils.metrics import overlaps_3d_numpy
 
 
+def _build_jax_native(jn) -> None:
+    """Build m3d/native's library with JAX's own command (m3d/native/
+    __init__.py ``_build``: the same flags, so its IoU stays bit-equal)
+    into a file of this process, then move it onto the library's path in
+    one ``os.replace``."""
+    tmp = f"{jn._LIB_PATH}.{os.getpid()}.tmp"
+    try:
+        subprocess.run(["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+                        "-o", tmp, jn._SRC, "-lpthread"],
+                       check=True, capture_output=True, timeout=300)
+        os.replace(tmp, jn._LIB_PATH)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def _loads(path: str) -> bool:
+    try:
+        ctypes.CDLL(path)
+        return True
+    except OSError:
+        return False
+
+
 def jax_native():
-    """m3d.native with its library loaded. JAX builds it through one shared
-    ``.tmp`` path, so a build raced by another test process can fail and
-    leave JAX on numpy; by the second try the winner's library is in
-    place."""
+    """m3d.native with its library loaded, race-free across test processes.
+
+    JAX builds the library at first use through one shared ``.tmp`` path,
+    so processes that build it at once can move a half-written file into
+    place ("file too short") and leave JAX on its numpy fallbacks. Here,
+    under an exclusive lock, a missing, stale or unloadable library is
+    built by this process into a file of its own and moved into place
+    before JAX loads it; JAX then finds it fresh and builds nothing."""
     from m3d import native as jn
 
-    if not jn.available():
-        jn._lib = None
+    if jn._lib:
+        return jn
+    lock = os.path.join(tempfile.gettempdir(), "m3d_native_build.lock")
+    with open(lock, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            for _ in range(3):
+                fresh = (os.path.exists(jn._LIB_PATH)
+                         and os.path.getmtime(jn._LIB_PATH)
+                         >= os.path.getmtime(jn._SRC))
+                if not (fresh and _loads(jn._LIB_PATH)):
+                    _build_jax_native(jn)
+                jn._lib = None
+                if jn.available():
+                    break
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
     assert jn.available(), "m3d.native does not build here"
     return jn
 

@@ -342,23 +342,61 @@ def test_errors_are_raised(served, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="is_available"):
             serve.ServingBundle.load(card)
-    for call in (
-            lambda: serve.export_bundle(served["tcfg"], served["state"],
-                                        str(tmp_path / "dp"), batch=2,
-                                        device="cpu", data_parallel=2),
-            lambda: serve.export_bucketed(served["tcfg"], served["state"],
-                                          str(tmp_path / "dpr"), [RAW],
-                                          device="cpu", data_parallel=2),
-            lambda: serve.main(["--config_path", "x", "--weights", "y",
-                                "--out", str(tmp_path / "m"),
-                                "--data_parallel", "2"])):
-        with pytest.raises(ValueError, match="item 6"):
-            call()
-    assert not os.path.exists(tmp_path / "dp")
+    # data_parallel 2 over the CPU twice: each slice of the batch is the
+    # data_parallel 1 monolithic bundle's answer on it, bit for bit; JAX's
+    # errors stay errors.
+    dp_dir = str(tmp_path / "dp")
+    man = serve.export_bundle(served["tcfg"], served["state"], dp_dir,
+                              batch=2, device="cpu", data_parallel=2)
+    assert man["data_parallel"] == 2 and man["batch"] == 2
+    assert man["chunks"] == {"classifier": None, "mask": None}
+    dp = serve.ServingBundle.load(dp_dir, device="cpu",
+                                  devices=["cpu", "cpu"])
+    got = dp.predict(served["image"])
+    for i in range(2):
+        want = served["mono"].predict(served["image"][i:i + 1])
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k][i:i + 1], v, k)
+    with pytest.raises(ValueError, match="batch 3 not divisible by "
+                       "data_parallel 2"):
+        serve.export_bundle(served["tcfg"], served["state"],
+                            str(tmp_path / "dp3"), batch=3, device="cpu",
+                            data_parallel=2)
+    with pytest.raises(ValueError, match="exported data_parallel=2; only 1 "
+                       "devices available"):
+        serve.ServingBundle.load(dp_dir, device="cpu", devices=["cpu"])
+    assert not os.path.exists(tmp_path / "dp3")
     with open(os.path.join(card, "manifest.json"), "w") as f:
         json.dump(dict(m, format="m3d-serving-bundle-v1"), f)  # JAX's
     with pytest.raises(ValueError, match="not a serving bundle"):
         serve.ServingBundle.load(card, device="cpu")
+
+
+@pytest.mark.parametrize("auto", [True, False])
+def test_chunks_from_config_matches_jax(auto):
+    """``chunks_from_config(config, model, auto)`` equals JAX's for the
+    bench-like defaults (both stages chunked), the tiny serving config
+    (neither), explicit keys and explicit 0; ``auto=False`` (data-parallel
+    exports) drops only the defaults."""
+    from m3d.config import Config
+    from m3d.models.inference import chunks_from_config as j_chunks
+
+    cases = [dict(POST_NMS_ROIS_INFERENCE=1500, DETECTION_MAX_INSTANCES=50),
+             tiny_config().to_dict(),
+             dict(POST_NMS_ROIS_INFERENCE=1500, DETECTION_MAX_INSTANCES=50,
+                  CLASSIFIER_CHUNK=96),
+             dict(POST_NMS_ROIS_INFERENCE=600, CLASSIFIER_CHUNK=0,
+                  MASK_CHUNK=8)]
+    seen = set()
+    for kw in cases:
+        jcfg, tcfg = Config(**kw), TConfig(**kw)
+        want = j_chunks(jcfg, JMaskRCNN.from_config(jcfg, mode="inference"),
+                        auto=auto)
+        got = T_inf.chunks_from_config(tcfg, MaskRCNN.from_config(
+            tcfg, mode="inference", device="meta"), auto=auto)
+        assert got == want, kw
+        seen.add(got)
+    assert len(seen) >= 3, seen
 
 
 def test_classifier_route_at_c32_sends_no_row_to_the_fused_op(monkeypatch):

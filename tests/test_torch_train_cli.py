@@ -4,8 +4,8 @@ against JAX's own train step on the same weights and the same generator
 batch (gradients, metrics, parameters after the optimiser), then
 ``python -m m3d_torch`` for RPN_TRAINING and e2e HEAD_TRAINING, one epoch of
 two steps each, with their checkpoints read back by JAX, AUTO_TUNE_RPN and
-Keras ``.h5`` weights run, and the one training option not ported yet
-(GPU_COUNT > 1) refused before anything is written.
+Keras ``.h5`` weights run, and a torchrun world that differs from the
+config's refused (GPU_COUNT > 1 itself: tests/test_torch_cli_ranks.py).
 """
 
 import contextlib
@@ -309,28 +309,6 @@ def test_cli_e2e_head_training_trains_heads_only(train_data, jax_tiny,
                for k, v in resumed.model.state_dict().items())
 
 
-UNPORTED = {
-    "gpu_count_2": ("HEAD_TRAINING", dict(MODE="training_head_e2e",
-                                          GPU_COUNT=2)),
-    "gpu_count_2_rpn": ("RPN_TRAINING", dict(MODE="training", GPU_COUNT=2,
-                                             AUTO_TUNE_RPN=True)),
-    "gpu_count_4_mrcnn": ("MRCNN_TRAINING", dict(MODE="training",
-                                                 GPU_COUNT=4)),
-}
-
-
-@pytest.mark.parametrize("case", sorted(UNPORTED))
-def test_cli_training_options_not_ported(case, tmp_path):
-    """Exit naming the ROADMAP item, before any file but the config is
-    read and before anything is written."""
-    task, keys = UNPORTED[case]
-    path, wdir = _write_config(tmp_path, str(tmp_path / "no_data"), "out",
-                               **keys)
-    with pytest.raises(SystemExit, match=r"not ported yet \(ROADMAP.md §1"):
-        cli.main(["--task", task, "--config_path", path, "--device", "cpu"])
-    assert not os.path.exists(os.path.dirname(wdir))
-
-
 H5_WEIGHTS = os.path.join(REPO, "tests", "fixtures", "keras231_tiny.h5")
 OPTIONS = {
     "auto_tune_rpn": ("RPN_TRAINING", dict(MODE="training",
@@ -374,18 +352,20 @@ def test_cli_training_options_run(case, train_data, tmp_path):
 
 
 def test_cli_training_head_only_exits_one(tmp_path):
-    """``python -m m3d_torch`` itself: a training option not ported yet
-    (GPU_COUNT > 1 on RPN_TRAINING) exits 1 and writes nothing; with no
-    card and no --device cpu RPN_TRAINING exits non-zero and writes
-    nothing."""
+    """``python -m m3d_torch`` itself: under torchrun (WORLD_SIZE in the
+    environment) a world of 3 for a config of GPU_COUNT 2 exits 1, naming
+    both, and writes nothing; with no card and no --device cpu
+    RPN_TRAINING exits non-zero and writes nothing."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     path, wdir = _write_config(tmp_path, str(tmp_path / "no_data"), "out",
                                MODE="training", GPU_COUNT=2)
     res = subprocess.run(
         [sys.executable, "-m", "m3d_torch", "--task", "RPN_TRAINING",
-         "--config_path", path, "--device", "cpu"], cwd=REPO, env=env,
+         "--config_path", path, "--device", "cpu"], cwd=REPO,
+        env=dict(env, WORLD_SIZE="3", RANK="0", LOCAL_RANK="0"),
         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 1 and "not ported yet" in res.stderr
+    assert res.returncode == 1 and "torchrun started 3 ranks" in res.stderr
+    assert "mesh has 2" in res.stderr
     if not torch.cuda.is_available():
         res = subprocess.run(
             [sys.executable, "-m", "m3d_torch", "--task", "RPN_TRAINING",
