@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
+from m3d_torch import trace
 from m3d_torch.models.detection import refine_detections_batch
 from m3d_torch.models.mask_rcnn import MaskRCNN
 
@@ -64,11 +65,13 @@ def chunked_roi_stage(apply_chunk, rois, n_live: int, chunk: int):
 
     ``apply_chunk`` maps [B, chunk, ...] to a tuple of [B, chunk, ...]
     tensors. Returns the tuple it would return for the whole axis, with
-    skipped-chunk slots zero.
+    skipped-chunk slots zero. Counts ``rows.computed``, the rows of the
+    launched chunks.
     """
     n = rois.shape[1]
     chunk = int(chunk)
     if chunk >= n:
+        trace.count("rows.computed", rois.shape[0] * n)
         return apply_chunk(rois)
     n_chunks = -(-n // chunk)
     pad = n_chunks * chunk - n
@@ -80,6 +83,7 @@ def chunked_roi_stage(apply_chunk, rois, n_live: int, chunk: int):
     if not outs:  # nothing live: one chunk runs for its shapes, zeroed
         probe = apply_chunk(rois[:, :chunk])
         outs = [tuple(torch.zeros_like(t) for t in probe)]
+    trace.count("rows.computed", rois.shape[0] * chunk * len(outs))
     skipped = n_chunks - len(outs)
     stitched = []
     for parts in zip(*outs):
@@ -157,32 +161,38 @@ def compacted_classifier_stage(model: MaskRCNN, proposals, prop_valid,
     """Classifier stage with cross-batch box-level compaction. Returns
     (class_logits, class_probs, bbox_deltas) shaped [B, N, ...]; slots past
     the last live chunk are zero."""
-    b, n = prop_valid.shape[:2]
-    perm, inv, total = _compact_perm(prop_valid)
-    boxes_f = proposals.reshape(b * n, 6)[perm]
-    batch_f = torch.arange(b, device=proposals.device)
-    batch_f = batch_f.repeat_interleave(n)[perm]
-    packed = torch.cat([boxes_f, batch_f.float()[:, None]], dim=-1)[None]
+    with trace.span("classifier"):
+        b, n = prop_valid.shape[:2]
+        with trace.span("classifier.pack"):
+            perm, inv, total = _compact_perm(prop_valid)
+            boxes_f = proposals.reshape(b * n, 6)[perm]
+            batch_f = torch.arange(b, device=proposals.device)
+            batch_f = batch_f.repeat_interleave(n)[perm]
+            packed = torch.cat([boxes_f, batch_f.float()[:, None]],
+                               dim=-1)[None]
 
-    def cls_chunk(x, image_meta, feats, *head):  # x: [1, chunk, 7]
-        logits, probs, deltas = model.classify_rois_flat(
-            x[0, :, :6], x[0, :, 6].to(torch.int32), image_meta, feats,
-            *head)
-        return logits[None], probs[None], deltas[None]
+        def cls_chunk(x, image_meta, feats, *head):  # x: [1, chunk, 7]
+            logits, probs, deltas = model.classify_rois_flat(
+                x[0, :, :6], x[0, :, 6].to(torch.int32), image_meta, feats,
+                *head)
+            return logits[None], probs[None], deltas[None]
 
-    if torch.compiler.is_exporting():
-        k = model.classifier.num_classes
-        outs = chunked_roi_stage_traced(
-            cls_chunk, packed, total, chunk,
-            (((k,), torch.float32), ((k,), torch.float32),
-             ((k, 6), torch.float32)),
-            (image_meta, list(mrcnn_feats), module_state(model.classifier)))
-    else:
-        # Host sync: the live proposal count decides which chunks launch.
-        outs = chunked_roi_stage(
-            lambda x: cls_chunk(x, image_meta, mrcnn_feats), packed,
-            int(total), chunk)
-    return tuple(x[0][inv].reshape((b, n) + x.shape[2:]) for x in outs)
+        if torch.compiler.is_exporting():
+            k = model.classifier.num_classes
+            outs = chunked_roi_stage_traced(
+                cls_chunk, packed, total, chunk,
+                (((k,), torch.float32), ((k,), torch.float32),
+                 ((k, 6), torch.float32)),
+                (image_meta, list(mrcnn_feats),
+                 module_state(model.classifier)))
+        else:
+            # Host sync: the live proposal count decides which chunks launch.
+            live = trace.host_read(total, "live.classifier")
+            trace.count("rows.live", live)
+            outs = chunked_roi_stage(
+                lambda x: cls_chunk(x, image_meta, mrcnn_feats), packed, live,
+                chunk)
+        return tuple(x[0][inv].reshape((b, n) + x.shape[2:]) for x in outs)
 
 
 def compacted_mask_stage(model: MaskRCNN, detections, det_valid, image_meta,
@@ -191,27 +201,37 @@ def compacted_mask_stage(model: MaskRCNN, detections, det_valid, image_meta,
     the pooled features already compacted (rows >= total are zero), and the
     mask-head convolutions run chunk-gated on the same total. Returns masks
     [B, N, 2m, 2m, 2m, K]; slots past the last live chunk are zero."""
-    b, n = det_valid.shape[:2]
-    perm, inv, total = _compact_perm(det_valid)
-    boxes_f = detections[..., :6].reshape(b * n, 6)[perm]
-    batch_f = torch.arange(b, device=detections.device)
-    batch_f = batch_f.repeat_interleave(n)[perm]
-    aligned = model.mask_align_compact(boxes_f, batch_f.to(torch.int32), total,
-                                       image_meta, mrcnn_feats)
-    if torch.compiler.is_exporting():
-        m2 = 2 * model.mask_pool_size
-        masks_flat = chunked_roi_stage_traced(
-            lambda x, head: (torch.func.functional_call(
-                model.mask_head, head, (x,), strict=True),),
-            aligned[None], total, chunk,
-            (((m2, m2, m2, model.classifier.num_classes), torch.float32),),
-            (module_state(model.mask_head),))
-    else:
-        # Host sync: the live detection count decides which chunks launch.
-        masks_flat = chunked_roi_stage(lambda x: (model.apply_mask_head(x),),
-                                       aligned[None], int(total), chunk)
-    masks_flat = masks_flat[0][0]
-    return masks_flat[inv].reshape((b, n) + masks_flat.shape[1:])
+    with trace.span("mask"):
+        b, n = det_valid.shape[:2]
+        perm, inv, total = _compact_perm(det_valid)
+        boxes_f = detections[..., :6].reshape(b * n, 6)[perm]
+        batch_f = torch.arange(b, device=detections.device)
+        batch_f = batch_f.repeat_interleave(n)[perm]
+        with trace.span("mask.align"):
+            aligned = model.mask_align_compact(
+                boxes_f, batch_f.to(torch.int32), total, image_meta,
+                mrcnn_feats)
+        if torch.compiler.is_exporting():
+            m2 = 2 * model.mask_pool_size
+            masks_flat = chunked_roi_stage_traced(
+                lambda x, head: (torch.func.functional_call(
+                    model.mask_head, head, (x,), strict=True),),
+                aligned[None], total, chunk,
+                (((m2, m2, m2, model.classifier.num_classes), torch.float32),),
+                (module_state(model.mask_head),))
+        else:
+            # Host sync: the live detection count decides which chunks launch.
+            live = trace.host_read(total, "live.mask")
+            trace.count("rows.live", live)
+
+            def head_chunk(x):
+                with trace.span("mask.head"):
+                    return (model.apply_mask_head(x),)
+
+            masks_flat = chunked_roi_stage(head_chunk, aligned[None], live,
+                                           chunk)
+        masks_flat = masks_flat[0][0]
+        return masks_flat[inv].reshape((b, n) + masks_flat.shape[1:])
 
 
 @torch.no_grad()
@@ -226,42 +246,45 @@ def adaptive_inference(model: MaskRCNN, image, image_meta, anchors, *,
     padded slot (``MaskRCNN.classify_rois`` / ``mask_rois``), as JAX does.
     Returns the same dict as m3d's ``adaptive_inference``.
     """
-    image, image_meta, anchors = (torch.as_tensor(x, device=device)
-                                  for x in (image, image_meta, anchors))
-    image_meta = image_meta.float()
+    with trace.span("infer", device=device):
+        image, image_meta, anchors = (torch.as_tensor(x, device=device)
+                                      for x in (image, image_meta, anchors))
+        image_meta = image_meta.float()
 
-    feats = model.extract_features(image.float())
-    logits, probs, deltas = model.rpn_forward(list(feats))
-    proposals, prop_valid = model.propose(probs, deltas, anchors)
-    cap = int(model.head_max_rois or 0)
-    if cap and cap < proposals.shape[1]:
-        proposals = proposals[:, :cap]
-        prop_valid = prop_valid[:, :cap]
-    mrcnn_feats = list(feats[:4])
+        feats = model.extract_features(image.float())
+        logits, probs, deltas = model.rpn_forward(list(feats))
+        proposals, prop_valid = model.propose(probs, deltas, anchors)
+        cap = int(model.head_max_rois or 0)
+        if cap and cap < proposals.shape[1]:
+            proposals = proposals[:, :cap]
+            prop_valid = prop_valid[:, :cap]
+        mrcnn_feats = list(feats[:4])
 
-    if classifier_chunk:
-        _, cls_probs, cls_bbox = compacted_classifier_stage(
-            model, proposals, prop_valid, image_meta, mrcnn_feats,
-            chunk=int(classifier_chunk))
-    else:
-        _, cls_probs, cls_bbox = model.classify_rois(proposals, image_meta,
-                                                     mrcnn_feats)
-    detections, det_valid = refine_detections_batch(
-        proposals, cls_probs, cls_bbox, image_meta, model.bbox_std_dev,
-        model.detection_min_confidence, model.detection_nms_threshold,
-        model.detection_max_instances, nms_xy_only=model.detection_nms_xy_only)
-    if mask_chunk:
-        masks = compacted_mask_stage(model, detections, det_valid,
-                                     image_meta, mrcnn_feats,
-                                     chunk=int(mask_chunk))
-    else:
-        masks = model.mask_rois(detections[..., :6], image_meta, mrcnn_feats)
-    return {
-        "detections": detections,
-        "detections_valid": det_valid,
-        "mrcnn_masks": masks,
-        "mrcnn_probs": cls_probs,
-        "mrcnn_bbox": cls_bbox,
-        "proposals": proposals,
-        "proposals_valid": prop_valid,
-    }
+        if classifier_chunk:
+            _, cls_probs, cls_bbox = compacted_classifier_stage(
+                model, proposals, prop_valid, image_meta, mrcnn_feats,
+                chunk=int(classifier_chunk))
+        else:
+            _, cls_probs, cls_bbox = model.classify_rois(
+                proposals, image_meta, mrcnn_feats, valid=prop_valid)
+        detections, det_valid = refine_detections_batch(
+            proposals, cls_probs, cls_bbox, image_meta, model.bbox_std_dev,
+            model.detection_min_confidence, model.detection_nms_threshold,
+            model.detection_max_instances,
+            nms_xy_only=model.detection_nms_xy_only)
+        if mask_chunk:
+            masks = compacted_mask_stage(model, detections, det_valid,
+                                         image_meta, mrcnn_feats,
+                                         chunk=int(mask_chunk))
+        else:
+            masks = model.mask_rois(detections[..., :6], image_meta,
+                                    mrcnn_feats, valid=det_valid)
+        return {
+            "detections": detections,
+            "detections_valid": det_valid,
+            "mrcnn_masks": masks,
+            "mrcnn_probs": cls_probs,
+            "mrcnn_bbox": cls_bbox,
+            "proposals": proposals,
+            "proposals_valid": prop_valid,
+        }

@@ -18,7 +18,8 @@ batch statistics only after ``bn_mode(True)`` on a model built with
 ``train_bn`` (TRAIN_BN and a mode other than "inference", as JAX's
 ``from_config``), never because of ``nn.Module.train()``.
 ``init_params`` seeds the weights no checkpoint covers, with JAX's
-distributions.
+distributions. The stages open the spans of m3d_torch/trace.py: ``trunk``,
+``proposals``, ``classifier`` and ``mask`` (``forward`` opens ``infer``).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import math
 import torch
 from torch import nn
 
+from m3d_torch import trace
 from m3d_torch.checkpoints import TRANSPOSED_CONVS
 from m3d_torch.models.backbone import BatchNorm, ResNet3D
 from m3d_torch.models.detection import refine_detections_batch
@@ -156,20 +158,25 @@ class MaskRCNN(nn.Module):
     # Composable stages ------------------------------------------------
     def extract_features(self, image):
         """image [B, H, W, D, C] -> (P2, P3, P4, P5, P6)."""
-        _, c2, c3, c4, c5 = self.resnet(image)
-        return self.fpn(c2, c3, c4, c5)
+        with trace.span("trunk"):
+            _, c2, c3, c4, c5 = self.resnet(image)
+            return self.fpn(c2, c3, c4, c5)
 
     def rpn_forward(self, feature_maps):
         """Shared RPN head on P2..P6, concatenated along anchors."""
-        outs = [self.rpn(p) for p in feature_maps]
-        return tuple(torch.cat([o[i] for o in outs], dim=1) for i in range(3))
+        with trace.span("proposals"):
+            outs = [self.rpn(p) for p in feature_maps]
+            return tuple(torch.cat([o[i] for o in outs], dim=1)
+                         for i in range(3))
 
     def propose(self, rpn_probs, rpn_deltas, anchors):
-        return generate_proposals(
-            rpn_probs, rpn_deltas, anchors, self.rpn_bbox_std_dev,
-            proposal_count=self.post_nms_rois,
-            nms_threshold=self.rpn_nms_threshold,
-            pre_nms_limit=self.pre_nms_limit, image_depth=self.image_depth)
+        with trace.span("proposals"):
+            return generate_proposals(
+                rpn_probs, rpn_deltas, anchors, self.rpn_bbox_std_dev,
+                proposal_count=self.post_nms_rois,
+                nms_threshold=self.rpn_nms_threshold,
+                pre_nms_limit=self.pre_nms_limit,
+                image_depth=self.image_depth)
 
     def classify_rois_flat(self, boxes_flat, batch_idx, image_meta,
                            mrcnn_feature_maps, head=None):
@@ -178,14 +185,17 @@ class MaskRCNN(nn.Module):
         ``head``: the classifier's parameters and buffers to run it on
         (``torch.func.functional_call``; a traced branch passes them in),
         by default its own."""
-        aligned = pyramid_roi_align_flat(boxes_flat, batch_idx, image_meta,
-                                         list(mrcnn_feature_maps),
-                                         self.pool_size)
-        if head is None:
-            logits, probs, deltas = self.classifier(aligned[None])
-        else:
-            logits, probs, deltas = torch.func.functional_call(
-                self.classifier, head, (aligned[None],), strict=True)
+        with trace.span("classifier.align"):
+            aligned = pyramid_roi_align_flat(boxes_flat, batch_idx,
+                                             image_meta,
+                                             list(mrcnn_feature_maps),
+                                             self.pool_size)
+        with trace.span("classifier.head"):
+            if head is None:
+                logits, probs, deltas = self.classifier(aligned[None])
+            else:
+                logits, probs, deltas = torch.func.functional_call(
+                    self.classifier, head, (aligned[None],), strict=True)
         return logits[0], probs[0], deltas[0]
 
     def mask_align_compact(self, boxes_flat, batch_idx, total, image_meta,
@@ -201,31 +211,45 @@ class MaskRCNN(nn.Module):
         """Mask-head convolutions on pre-aligned [B, T, m, m, m, C]."""
         return self.mask_head(aligned)
 
-    def classify_rois(self, rois, image_meta, mrcnn_feature_maps):
+    def classify_rois(self, rois, image_meta, mrcnn_feature_maps,
+                      valid=None):
         """Classifier stage over padded [B, N, 6] ROIs. Where the fused
         ROIAlign + FC entry takes the features (always on the card), the
         pooled tensor is never written: conv1's float32 output gets its
         bias in float32 and the head runs ``from_fc``. Otherwise padded
-        ROIAlign and the whole head. Returns ([B, N, K] logits, probs,
-        [B, N, K, 6] deltas)."""
-        feats = list(mrcnn_feature_maps)
-        if fused_classifier_ok(self.pool_size, feats):
-            conv = self.classifier.mrcnn_class_conv1
-            fc = pyramid_roi_align_fc(rois, image_meta, feats,
-                                      self.pool_size, conv.weight,
-                                      kernel="kron")
-            return self.classifier(fc + conv.bias.float(), from_fc=True)
-        aligned = pyramid_roi_align_auto(rois, image_meta, feats,
-                                         self.pool_size)
-        return self.classifier(aligned)
+        ROIAlign and the whole head. ``valid``: the [B, N] mask of the
+        slots holding a box, counted as the span's ``rows.live``. Returns
+        ([B, N, K] logits, probs, [B, N, K, 6] deltas)."""
+        with trace.span("classifier"):
+            _count_padded_rows(rois, valid)
+            feats = list(mrcnn_feature_maps)
+            if fused_classifier_ok(self.pool_size, feats):
+                conv = self.classifier.mrcnn_class_conv1
+                with trace.span("classifier.align"):
+                    fc = pyramid_roi_align_fc(rois, image_meta, feats,
+                                              self.pool_size, conv.weight,
+                                              kernel="kron")
+                with trace.span("classifier.head"):
+                    return self.classifier(fc + conv.bias.float(),
+                                           from_fc=True)
+            with trace.span("classifier.align"):
+                aligned = pyramid_roi_align_auto(rois, image_meta, feats,
+                                                 self.pool_size)
+            with trace.span("classifier.head"):
+                return self.classifier(aligned)
 
-    def mask_rois(self, rois, image_meta, mrcnn_feature_maps):
+    def mask_rois(self, rois, image_meta, mrcnn_feature_maps, valid=None):
         """Mask stage over every padded [B, N, 6] slot: padded ROIAlign
-        (the kernel on the card) and the mask head."""
-        aligned = pyramid_roi_align_auto(rois, image_meta,
-                                         list(mrcnn_feature_maps),
-                                         self.mask_pool_size)
-        return self.mask_head(aligned)
+        (the kernel on the card) and the mask head. ``valid`` as in
+        ``classify_rois``."""
+        with trace.span("mask"):
+            _count_padded_rows(rois, valid)
+            with trace.span("mask.align"):
+                aligned = pyramid_roi_align_auto(rois, image_meta,
+                                                 list(mrcnn_feature_maps),
+                                                 self.mask_pool_size)
+            with trace.span("mask.head"):
+                return self.mask_head(aligned)
 
     def rpn_outputs(self, image, anchors, feats=None):
         """RPN forward with proposal generation (JAX
@@ -275,8 +299,9 @@ class MaskRCNN(nn.Module):
         proposal and detection slot is computed. image [B, H, W, D, C],
         image_meta [B, META] and anchors [A, 6] are tensors on the model's
         device. Returns the same dict as JAX's."""
-        return self.forward_from_features(self.extract_features(
-            image.float()), image_meta, anchors)
+        with trace.span("infer", device=image.device):
+            return self.forward_from_features(self.extract_features(
+                image.float()), image_meta, anchors)
 
     @torch.no_grad()
     def forward_from_features(self, feats, image_meta, anchors):
@@ -291,13 +316,15 @@ class MaskRCNN(nn.Module):
         image_meta = image_meta.float()
         mrcnn_feats = list(feats[:4])
         _, cls_probs, cls_bbox = self.classify_rois(proposals, image_meta,
-                                                    mrcnn_feats)
+                                                    mrcnn_feats,
+                                                    valid=prop_valid)
         detections, det_valid = refine_detections_batch(
             proposals, cls_probs, cls_bbox, image_meta, self.bbox_std_dev,
             self.detection_min_confidence, self.detection_nms_threshold,
             self.detection_max_instances,
             nms_xy_only=self.detection_nms_xy_only)
-        masks = self.mask_rois(detections[..., :6], image_meta, mrcnn_feats)
+        masks = self.mask_rois(detections[..., :6], image_meta, mrcnn_feats,
+                               valid=det_valid)
         return {
             "detections": detections,
             "detections_valid": det_valid,
@@ -307,6 +334,14 @@ class MaskRCNN(nn.Module):
             "proposals": proposals,
             "proposals_valid": prop_valid,
         }
+
+
+def _count_padded_rows(rois, valid) -> None:
+    """A padded stage's ``rows.computed`` (every [B, N] slot) and
+    ``rows.live`` (the ``valid`` mask, summed after the call)."""
+    trace.count("rows.computed", rois.shape[0] * rois.shape[1])
+    if valid is not None:
+        trace.count("rows.live", valid)
 
 
 # Initialisers that differ from flax's default lecun_normal (JAX:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from m3d_torch import boxes as B
+from m3d_torch import trace
 from m3d_torch.ops.nms3d import nms_3d
 
 
@@ -29,8 +30,9 @@ def generate_proposals(rpn_probs, rpn_deltas, anchors, rpn_bbox_std_dev,
     (proposals [B, proposal_count, 6] zero-padded,
     valid [B, proposal_count])."""
     scores = rpn_probs.float()[..., 1]
-    std = torch.as_tensor(rpn_bbox_std_dev, dtype=torch.float32,
-                          device=scores.device)
+    with trace.waits("table.generate_proposals"):
+        std = torch.as_tensor(rpn_bbox_std_dev, dtype=torch.float32,
+                              device=scores.device)
     deltas = (rpn_deltas.float() * std).clamp(-3.0, 3.0)
     anchors = anchors.float()
     k = min(pre_nms_limit, anchors.shape[0])

@@ -35,6 +35,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from m3d_torch import trace
+
 NEG_INF = -1e30
 
 # Above this candidate count the fixpoint's [N, N] suppression matrix gets
@@ -104,7 +106,8 @@ def _fixpoint(alive0, sup, check_every: int, max_rounds: int):
     sup [B, n, n] float) for at most ``max_rounds`` rounds; the host reads
     whether the last round changed anything once every ``check_every``
     rounds. Under export: ``_fixpoint_traced``, the same set (rounds past
-    the fixpoint change nothing, and both stop at the cap)."""
+    the fixpoint change nothing, and both stop at the cap). Counts the
+    rounds as ``nms.rounds``."""
     if torch.compiler.is_exporting():
         return _fixpoint_traced(alive0, sup, max_rounds)
     alive = alive0
@@ -115,8 +118,9 @@ def _fixpoint(alive0, sup, check_every: int, max_rounds: int):
             killed = torch.bmm(alive.float()[:, None, :], sup)[:, 0] > 0.5
             alive = alive0 & ~killed
             rounds += 1
-        if not bool((alive != prev).any()):
+        if not trace.host_read((alive != prev).any(), "nms.fixpoint"):
             break
+    trace.count("nms.rounds", rounds)
     return alive
 
 
@@ -146,12 +150,13 @@ def nms_3d(boxes, scores, iou_threshold: float, max_output: int,
     """Greedy NMS over [B, N, 6] boxes and [B, N] scores: the fixpoint for
     N <= FIXPOINT_MAX_N, else the blockwise greedy (as m3d.ops.nms3d.nms_3d
     dispatches). Returns (indices [B, max_output] int64 into the N axis,
-    valid [B, max_output] bool)."""
-    if scores.shape[1] <= FIXPOINT_MAX_N:
-        return nms_3d_fixpoint(boxes, scores, iou_threshold, max_output,
-                               valid=valid)
-    return nms_3d_blockwise(boxes, scores, iou_threshold, max_output,
-                            valid=valid, block_size=block_size)
+    valid [B, max_output] bool). Opens the ``nms`` span."""
+    with trace.span("nms"):
+        if scores.shape[1] <= FIXPOINT_MAX_N:
+            return nms_3d_fixpoint(boxes, scores, iou_threshold, max_output,
+                                   valid=valid)
+        return nms_3d_blockwise(boxes, scores, iou_threshold, max_output,
+                                valid=valid, block_size=block_size)
 
 
 def nms_3d_fixpoint(boxes, scores, iou_threshold: float, max_output: int,
@@ -207,7 +212,8 @@ def nms_3d_blockwise(boxes, scores, iou_threshold: float, max_output: int,
         return _select(order, kept, max_output, n)
     suppressed = torch.zeros_like(alive0)
     kept = torch.zeros_like(alive0)
-    n_live = int(alive0.sum(1).max()) if b else 0
+    n_live = trace.host_read(alive0.sum(1).max(), "nms.blockwise") if b \
+        else 0
     for start in range(0, n_live, block_size):
         end = start + block_size
         blk, blk_vols = boxes_s[:, start:end], vols[:, start:end]

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from m3d_torch import trace
 from m3d_torch.image_meta import parse_image_meta
 from m3d_torch.ops.conv3d import conv3d_fc
 from m3d_torch.ops.roialign_compact import (flatten_pyramid,
@@ -127,12 +128,15 @@ def _pool_size(pool_size) -> int:
     return int(pool_size)
 
 
-def _int_table(rows, device):
-    """An int64 tensor of the nested int lists ``rows``. Under export it is
-    built from ops, not as a tensor constant: the adaptive classifier's
-    chunks run in traced ``cond`` branches, whose graphs cannot hold one."""
+def _int_table(rows, device, site: str):
+    """An int64 tensor of the nested int lists ``rows``, copied to
+    ``device`` (on a card the copy waits for the stream: a host wait at
+    ``table.<site>``). Under export it is built from ops, not as a tensor
+    constant: the adaptive classifier's chunks run in traced ``cond``
+    branches, whose graphs cannot hold one."""
     if not torch.compiler.is_exporting():
-        return torch.tensor(rows, dtype=torch.long, device=device)
+        with trace.waits(f"table.{site}"):
+            return torch.tensor(rows, dtype=torch.long, device=device)
     return torch.stack([
         torch.stack([torch.full((), int(v), dtype=torch.long, device=device)
                      for v in row]) if isinstance(row, (tuple, list))
@@ -144,7 +148,7 @@ def _level_positions(boxes, levels, feature_maps, p: int):
     """Per-ROI level extents [N, 3] (int64) and sample positions, three
     [N, p] float32 grids."""
     dims = _int_table([tuple(fm.shape[1:4]) for fm in feature_maps],
-                      boxes.device)
+                      boxes.device, "_level_positions")
     rd = dims[levels.long()]
     pos = tuple(axis_positions(boxes[:, a], boxes[:, a + 3], rd[:, a], p)
                 for a in range(3))
@@ -156,7 +160,7 @@ def gather_flat_sanitized(boxes, levels, batch_idx, feature_maps, p: int):
     [N, p, p, p, C] in the features' dtype (float32 math), NaN-scrubbed."""
     flat, offsets, _, cells = flatten_pyramid(feature_maps)
     rd, pos = _level_positions(boxes, levels, feature_maps, p)
-    off = _int_table(offsets, boxes.device)
+    off = _int_table(offsets, boxes.device, "gather_flat_sanitized")
     base = batch_idx.long() * cells + off[levels.long()]
     out = trilinear_gather(
         flat, base, dims=tuple(rd[:, a].float() for a in range(3)),
@@ -257,8 +261,9 @@ def _slab_geometry(feature_maps, slab=None):
         hl, wl, dl = fm.shape[1:4]
         dz_pad = max(0, slab_z - dl) + (-max(dl, slab_z)) % Z_ALIGN
         padded.append((max(hl, s_y), max(wl, s_x), dl + dz_pad))
-    return (s_y, s_x, slab_z), torch.tensor(
-        padded, dtype=torch.long, device=feature_maps[0].device)
+    with trace.waits("table._slab_geometry"):
+        return (s_y, s_x, slab_z), torch.tensor(
+            padded, dtype=torch.long, device=feature_maps[0].device)
 
 
 def _cells_needed(pos, dim):

@@ -28,22 +28,22 @@ device -> confidence / size / host-NMS filter cascade -> mask unmolding ->
 pixelwise, instance-Dice and detection metrics -> label TIFF, boxes CSV
 and overlay PNG artifacts -> summary with a confidence histogram and a
 recommended threshold (core/models.py:6338-7196). ``times`` holds each
-evaluated image's seconds by stage: load, inference (CUDA events on the
-card), unmold, metrics and artifacts.
+evaluated image's seconds by stage, each a span of m3d_torch/trace.py
+(``span(name, into=...)``): load, inference (CUDA events on the card),
+unmold, metrics and artifacts.
 """
 
 from __future__ import annotations
 
-import contextlib
 import csv
 import json
 import os
-import time
 import traceback
 
 import numpy as np
 import torch
 
+from m3d_torch import trace
 from m3d_torch.anchors import normalized_pyramid_anchors
 from m3d_torch.checkpoints import autoconfigure_heads, restore_weights
 from m3d_torch.config import resolve_auto_confidence
@@ -261,37 +261,16 @@ class MrcnnTrainer:
     # ------------------------------------------------------------------
     # Evaluation (inference + metrics + artifacts)
     # ------------------------------------------------------------------
-    @contextlib.contextmanager
-    def _stage(self, name):
-        t = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._now[name] = (self._now.get(name, 0.0)
-                               + time.perf_counter() - t)
-
     def _infer(self, model, inputs, chunks):
         """Adaptive inference on the device; returns the detections and
         masks on the host as float32 (exact for the bf16 masks)."""
-        cuda = self.device.type == "cuda"
-        if cuda:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-            ev[0].record()
-        t = time.perf_counter()
-        out = adaptive_inference(
-            model, inputs["image"], inputs["image_meta"], inputs["anchors"],
-            classifier_chunk=chunks[0], mask_chunk=chunks[1],
-            device=self.device)
-        if cuda:
-            ev[1].record()
-        host = {k: out[k].float().cpu().numpy()
+        with trace.span("inference", into=self._now, device=self.device):
+            out = adaptive_inference(
+                model, inputs["image"], inputs["image_meta"],
+                inputs["anchors"], classifier_chunk=chunks[0],
+                mask_chunk=chunks[1], device=self.device)
+        return {k: out[k].float().cpu().numpy()
                 for k in ("detections", "mrcnn_masks")}
-        if cuda:
-            ev[1].synchronize()
-            self._now["inference"] = ev[0].elapsed_time(ev[1]) / 1e3
-        else:
-            self._now["inference"] = time.perf_counter() - t
-        return host
 
     def evaluate(self, max_images=None):
         """Evaluate the test split (at most ``max_images`` images). Returns
@@ -323,7 +302,7 @@ class MrcnnTrainer:
         for image_id in range(n):
             self._now = {}
             try:
-                with self._stage("load"):
+                with trace.span("load", into=self._now):
                     inputs = gen.get_input_prediction(image_id)
                 out = self._infer(model, inputs, chunks)
                 res = self._evaluate_one(test_ds, image_id, out, out_dir,
@@ -356,7 +335,7 @@ class MrcnnTrainer:
         # Unmold at the bucket shape, crop to the true window, then the
         # reference's confidence -> volume -> host-NMS cascade
         # (core/models.py:6911-6991).
-        with self._stage("unmold"):
+        with trace.span("unmold", into=self._now):
             boxes_px, class_ids, scores, masks = postprocess_detections(
                 out["detections"][0], out["mrcnn_masks"][0], (PH, PW, PD),
                 original_shape=(H, W, D),
@@ -366,12 +345,12 @@ class MrcnnTrainer:
                 max_instances=int(cfg.DETECTION_MAX_INSTANCES),
             )
 
-        with self._stage("load"):
+        with trace.span("load", into=self._now):
             gt_boxes, gt_class_ids, gt_masks = dataset.load_data(image_id)
 
         # Metrics: pixelwise, instance dice, detection counts
         # (core/models.py:6644-6721).
-        with self._stage("metrics"):
+        with trace.span("metrics", into=self._now):
             pred_union = masks.any(axis=-1) if masks.shape[-1] else np.zeros(
                 (H, W, D), bool)
             gt_union = (gt_masks > 0.5).any(axis=-1) if gt_masks is not None \
@@ -409,7 +388,7 @@ class MrcnnTrainer:
         # Label volume TIFF + boxes CSV + overlay PNG
         # (core/models.py:6313-6336, 7071-7087).
         name = str(image_id).zfill(6)
-        with self._stage("artifacts"):
+        with trace.span("artifacts", into=self._now):
             label_vol = instances_to_label_volume(masks, scores)
             imwrite_volume(os.path.join(out_dir, f"{name}.tiff"),
                            np.transpose(label_vol, (2, 0, 1)))

@@ -3,7 +3,9 @@
 With ``PROFILE_DIR`` set, one steady-state epoch is traced with
 ``torch.profiler`` (CPU and, on a card, CUDA activities) and written as a
 Chrome trace into PROFILE_DIR. The first epoch after FROM_EPOCH is skipped,
-since it holds the first calls' set-up, and the second is traced.
+since it holds the first calls' set-up, and the second is traced, with the
+program's spans (m3d_torch/trace.py) on, so the trace names its stages
+(``m3d.<span>`` ranges); their records are dropped.
 ``StepClock`` times each training step and the host time to take its batch.
 """
 
@@ -13,6 +15,8 @@ import os
 import time
 
 import torch
+
+from m3d_torch import trace
 
 
 class EpochProfiler:
@@ -28,9 +32,12 @@ class EpochProfiler:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.start()
+            trace.enable()
 
     def maybe_stop(self, epoch: int):
         if self.prof is not None and epoch == self.target:
+            trace.disable()
+            trace.take()
             self.prof.stop()
             os.makedirs(self.dir, exist_ok=True)
             path = os.path.join(self.dir, f"epoch_{epoch}.trace.json")

@@ -31,7 +31,6 @@ containers and the manifests to ``head_targets/datasets/{split}.csv``.
 
 from __future__ import annotations
 
-import contextlib
 import csv
 import os
 import time
@@ -39,6 +38,7 @@ import time
 import numpy as np
 import torch
 
+from m3d_torch import trace
 from m3d_torch.anchors import normalized_pyramid_anchors
 from m3d_torch.checkpoints import (BestAndLatest, params_to_jax,
                                    restore_weights)
@@ -248,17 +248,10 @@ class RPNTrainer:
         return model, history
 
     # ------------------------------------------------------------------
-    @contextlib.contextmanager
     def _stage(self, times: dict, name: str):
-        """Add the seconds of the block to ``times[name]``; on a card the
-        device work queued in it is waited for."""
-        t = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            times[name] = times.get(name, 0.0) + time.perf_counter() - t
+        """A span of m3d_torch/trace.py that adds the block's seconds to
+        ``times[name]``, the card's work queued in it waited for."""
+        return trace.span(name, into=times, device=self.device, sync=True)
 
     def head_target_generation(self, inject_gt=False):
         """Generate and save head-training targets (core/models.py:

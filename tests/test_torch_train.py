@@ -560,14 +560,19 @@ def test_checkpoints_both_ways(jax_tiny, tmp_path):
 
 def test_epoch_profiler_traces_the_second_epoch(tmp_path):
     """PROFILE_DIR set: the epoch after FROM_EPOCH is traced with
-    torch.profiler into a Chrome trace; other epochs are not."""
+    torch.profiler into a Chrome trace, the program's spans named in it;
+    other epochs are not, and tracing is off again after it."""
+    from m3d_torch import trace
     from m3d_torch.train.profiling import EpochProfiler
 
     prof = EpochProfiler(TConfig(PROFILE_DIR=str(tmp_path), FROM_EPOCH=2))
     for epoch in (2, 3, 4):
         prof.maybe_start(epoch)
-        torch.ones(8).sum()
+        with trace.span("trunk"):
+            torch.ones(8).sum()
         prof.maybe_stop(epoch)
     assert os.listdir(tmp_path) == ["epoch_3.trace.json"]
     with open(tmp_path / "epoch_3.trace.json") as f:
-        assert json.load(f)["traceEvents"]
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "m3d.trunk" in names
+    assert not trace._on and trace.take()["calls"] == []
