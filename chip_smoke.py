@@ -5,8 +5,8 @@
 Drives m3d_torch's Mask R-CNN inference at the bench configuration (128^3
 volumes, batch 4, ResNet-50, bf16) on the tracked checkpoint
 weights/bench_ckpt.f16.msgpack and four seeded synthetic volumes, along two
-paths: the adaptive graph (the compact mask-stage ROIAlign kernel,
-m3d_torch/csrc/roialign_compact.cu) and the monolithic graph
+paths: the adaptive graph (the compact ROIAlign kernel of both per-ROI
+stages, m3d_torch/csrc/roialign_compact.cu) and the monolithic graph
 (``MaskRCNN.forward``: the fused ROIAlign + FC kernel
 m3d_torch/csrc/roialign_fc.cu, the slab kernel m3d_torch/csrc/roialign_slab.cu
 for its fallback rows, and the compact kernel through its padded entry for
@@ -33,10 +33,11 @@ seconds:
               numpy oracle's exactly
   adaptive    adaptive_inference on the bench volumes; recall against GT
               must be >= 0.7 and the compact kernel must have been launched
+              twice (classifier and mask stages)
   captured    compact kernel vs plain version on the inputs of `adaptive`;
               the fused kernel vs its plain version on the adaptive
               classifier's first chunk (timing only: that path runs the
-              plain gather there)
+              compact kernel there)
   monolithic  MaskRCNN.forward on the same volumes: recall >= 0.7, finite
               outputs, masks in [0, 1], and the fused, slab and padded
               kernels each launched; detections matched against `adaptive`
@@ -46,8 +47,8 @@ seconds:
               whose split result must equal the default split's
   time        adaptive and monolithic vol/s and stage splits, and each
               kernel's / plain / library ms beside its bound, all timed
-              with CUDA events; the adaptive classifier chunk's plain
-              gather + conv1 beside the fused kernel on the same rows
+              with CUDA events; the adaptive classifier chunk's compact
+              kernel + conv1 beside the fused kernel on the same rows
   serve       m3d_torch.serve on the tracked checkpoint at 128^3: an
               adaptive bundle (default chunks) and a monolithic one (chunks
               0) at B = 4, each exported with torch.export, loaded and run
@@ -2237,7 +2238,7 @@ def h5_run(here: str, tmp: str, smi: str, errs: dict, dev) -> dict:
         raise AssertionError("h5 tiny model: non-finite outputs")
     for i, args in enumerate(calls):
         errs["roialign_compact"].append(compare(
-            args, f"h5 tiny model captured mask-stage inputs, call {i}"))
+            args, f"h5 tiny model captured adaptive inputs, call {i}"))
     phase("h5", f"tiny model from keras231_tiny.h5 restored {stats}; "
           f"adaptive_inference on {H5_IMAGES} seeded 64x64x8 volumes: "
           f"detections/image {out['detections_valid'].sum(1).tolist()}, "
@@ -3221,13 +3222,15 @@ def main() -> int:
     if float(masks.min()) < 0 or float(masks.max()) > 1:
         raise AssertionError("mask probabilities outside [0, 1]")
     n_launch = launches["roialign_compact"]
-    if n_launch < 1 or len(captured) != n_launch:
-        raise AssertionError(f"mask-stage kernel launches={n_launch}")
+    if n_launch != 2 or len(captured) != n_launch:   # classifier, mask
+        raise AssertionError(f"adaptive kernel launches={n_launch}")
     if recall < RECALL_FLOOR:
         raise AssertionError(f"recall {recall:.4f} < {RECALL_FLOOR}")
 
     # captured: the adaptive path's own kernel inputs --------------------
-    args = captured[0]
+    errs["roialign_compact"].append(compare(
+        captured[0], "captured classifier-stage inputs"))
+    args = captured[-1]
     errs["roialign_compact"].append(compare(args,
                                             "captured mask-stage inputs"))
 
@@ -3315,6 +3318,7 @@ def main() -> int:
     # it: slab inputs with bounds (0, n_fit), as _roi_align_fc_flat_core
     # makes them. Its launches here are checks, not the main path's.
     boxes_c, batch_c, meta_c, feats_c = chunks_seen[0]
+    boxes_c, batch_c = boxes_c[:cls_chunk], batch_c[:cls_chunk]
     spy = Spy()
     with torch.no_grad():
         roialign3d.pyramid_roi_align_fc_flat(boxes_c, batch_c, meta_c,
@@ -3370,17 +3374,19 @@ def main() -> int:
           f"fallback conv3d_fc over all {args_slab_main[0].shape[0]} rows "
           f"(float32) {fb_ms:.4f} ms")
 
-    def gather_conv1():
-        pooled = roialign3d.pyramid_roi_align_flat(boxes_c, batch_c, meta_c,
-                                                   feats_c, p)
+    every_row = torch.tensor(boxes_c.shape[0], dtype=torch.int32, device=dev)
+
+    def compact_conv1():
+        pooled = roialign3d.pyramid_roi_align_compact(
+            boxes_c, batch_c, every_row, meta_c, feats_c, p)
         return model.classifier.conv1_as_matmul(pooled)
 
     with torch.no_grad():
-        gather_conv1()
-        chunk_ms = cuda_ms(gather_conv1, 10)
+        compact_conv1()
+        chunk_ms = cuda_ms(compact_conv1, 10)
     phase("time", f"adaptive classifier chunk ({boxes_c.shape[0]} rows, "
-          f"{int(args_fc_chunk[-1][1])} fit the fused slab): plain gather + "
-          f"conv1 (the adaptive path's route) {chunk_ms:.4f} ms; the fused "
+          f"{int(args_fc_chunk[-1][1])} fit the fused slab): compact kernel "
+          f"+ conv1 (the adaptive path's route) {chunk_ms:.4f} ms; the fused "
           f"kernel on the same rows is '{CHUNK_FC}' below")
 
     levels, bat, total, pos, fms_main = args
@@ -3460,7 +3466,7 @@ def main() -> int:
         if name == CHUNK_FC:
             kernels[-1]["timing_only"] = (
                 "roialign_fc on the adaptive classifier's first chunk; the "
-                "adaptive path runs the plain gather there")
+                "adaptive path runs the compact kernel there")
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[{smi}] peak memory {peak:.2f} GiB", flush=True)
 

@@ -10,13 +10,17 @@ live count. Skipped chunks come back as exact zeros.
 JAX gates chunks with ``lax.cond`` on a traced count. Eager torch instead
 reads the live count on the host once per stage (one device->host sync for
 the classifier stage, one for the mask stage) and launches only the live
-chunks. The mask-stage ROIAlign kernel itself reads ``total`` on the device.
-A chunk of None/0 runs that stage monolithically (the model's
-``classify_rois`` / ``mask_rois``), with no host sync for it. Under
-``torch.export`` (m3d_torch/serve.py) the count cannot be read while
-tracing, so each chunk becomes a ``cond`` on ``chunk_start < total``
-(``chunked_roi_stage_traced``), as ``lax.cond`` in JAX: the same outputs,
-each gate read when the graph runs.
+chunks. The classifier stage runs the rows of its live chunks in one call
+(``launched_roi_stage``: one ROIAlign launch, one head pass), the mask
+stage its head chunk by chunk. The mask-stage ROIAlign kernel itself reads
+``total`` on the device. A chunk of None/0 runs that stage monolithically
+(the model's ``classify_rois`` / ``mask_rois``), with no host sync for it.
+Under ``torch.export`` (m3d_torch/serve.py) the count cannot be read while
+tracing, so the mask stage's chunks each become a ``cond`` on
+``chunk_start < total`` (``chunked_roi_stage_traced``), as ``lax.cond`` in
+JAX, and the classifier stage a ``cond`` for each number of launched
+chunks (``launched_roi_stage_traced``): the same outputs, each gate read
+when the graph runs.
 """
 
 from __future__ import annotations
@@ -95,6 +99,69 @@ def chunked_roi_stage(apply_chunk, rois, n_live: int, chunk: int):
     return tuple(stitched)
 
 
+def _zero_rows(t, n: int):
+    """[B, L, ...] followed by zero rows to [B, n, ...]."""
+    if t.shape[1] == n:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], n - t.shape[1])
+                                     + t.shape[2:])], 1)
+
+
+def launched_roi_stage(apply_rows, rois, n_live: int, chunk: int):
+    """``chunked_roi_stage`` in one call: ``apply_rows`` runs once over the
+    rows of the chunks that form launches (every chunk that starts below
+    ``n_live``; the first one, zeroed, if none does; the whole axis if it
+    is one chunk), cut at N; the rest of the axis is zero. Equal to the
+    chunked form where ``apply_rows`` treats each row on its own (up to the
+    rounding of a product over another number of rows). Counts
+    ``rows.computed``, the rows it runs."""
+    n = rois.shape[1]
+    chunk = int(chunk)
+    n_run = n if chunk >= n else min(max(-(-n_live // chunk), 1) * chunk, n)
+    trace.count("rows.computed", rois.shape[0] * n_run)
+    outs = apply_rows(rois[:, :n_run])
+    if n_live <= 0 and chunk < n:
+        outs = tuple(torch.zeros_like(t) for t in outs)
+    return tuple(_zero_rows(t, n) for t in outs)
+
+
+def launched_roi_stage_traced(apply_rows, rois, total, chunk: int,
+                              out_shapes, operands=()):
+    """``launched_roi_stage`` for export: a ``cond`` for each count c of
+    launched chunks, live where ``clamp(ceil(total / chunk), 1, chunks)``
+    is c, that runs ``apply_rows`` over the first min(c * chunk, N) rows,
+    the rows the eager form runs, so both run products of the same shapes;
+    the live one's outputs are selected, and zeroed where ``total`` is 0.
+    Arguments as for ``chunked_roi_stage_traced``, with ``out_shapes``
+    after [B, N]."""
+    n = rois.shape[1]
+    chunk = int(chunk)
+    if chunk >= n:
+        return apply_rows(rois, *operands)
+    n_chunks = -(-n // chunk)
+    flat, spec = tree_flatten(tuple(operands))
+    launched = torch.clamp(torch.div(total + (chunk - 1), chunk,
+                                     rounding_mode="floor"), 1, n_chunks)
+
+    def dead(x, *flat):
+        return tuple(torch.zeros((x.shape[0], n, *shape), dtype=dtype,
+                                 device=x.device)
+                     for shape, dtype in out_shapes)
+
+    outs = None
+    for c in range(1, n_chunks + 1):
+        def live(x, *flat, rows=min(c * chunk, n)):
+            return tuple(_zero_rows(t, n).contiguous() for t in apply_rows(
+                x[:, :rows], *tree_unflatten(list(flat), spec)))
+
+        got = torch.ops.higher_order.cond(launched == c, live, dead,
+                                          (rois, *flat))
+        outs = got if outs is None else tuple(
+            torch.where(launched == c, g, o) for g, o in zip(got, outs))
+    return tuple(torch.where(total > 0, o, torch.zeros_like(o))
+                 for o in outs)
+
+
 def chunked_roi_stage_traced(apply_chunk, rois, total, chunk: int,
                              out_shapes, operands=()):
     """``chunked_roi_stage`` for export: every chunk under a ``cond`` on
@@ -171,7 +238,7 @@ def compacted_classifier_stage(model: MaskRCNN, proposals, prop_valid,
             packed = torch.cat([boxes_f, batch_f.float()[:, None]],
                                dim=-1)[None]
 
-        def cls_chunk(x, image_meta, feats, *head):  # x: [1, chunk, 7]
+        def cls_rows(x, image_meta, feats, *head):  # x: [1, rows, 7]
             logits, probs, deltas = model.classify_rois_flat(
                 x[0, :, :6], x[0, :, 6].to(torch.int32), image_meta, feats,
                 *head)
@@ -179,18 +246,18 @@ def compacted_classifier_stage(model: MaskRCNN, proposals, prop_valid,
 
         if torch.compiler.is_exporting():
             k = model.classifier.num_classes
-            outs = chunked_roi_stage_traced(
-                cls_chunk, packed, total, chunk,
+            outs = launched_roi_stage_traced(
+                cls_rows, packed, total, chunk,
                 (((k,), torch.float32), ((k,), torch.float32),
                  ((k, 6), torch.float32)),
                 (image_meta, list(mrcnn_feats),
                  module_state(model.classifier)))
         else:
-            # Host sync: the live proposal count decides which chunks launch.
+            # Host sync: the live proposal count decides which rows run.
             live = trace.host_read(total, "live.classifier")
             trace.count("rows.live", live)
-            outs = chunked_roi_stage(
-                lambda x: cls_chunk(x, image_meta, mrcnn_feats), packed, live,
+            outs = launched_roi_stage(
+                lambda x: cls_rows(x, image_meta, mrcnn_feats), packed, live,
                 chunk)
         return tuple(x[0][inv].reshape((b, n) + x.shape[2:]) for x in outs)
 

@@ -40,8 +40,7 @@ from m3d_torch.models.rpn_head import RPNHead
 from m3d_torch.ops.roialign3d import (fused_classifier_ok,
                                       pyramid_roi_align_auto,
                                       pyramid_roi_align_compact,
-                                      pyramid_roi_align_fc,
-                                      pyramid_roi_align_flat)
+                                      pyramid_roi_align_fc)
 
 
 class MaskRCNN(nn.Module):
@@ -180,16 +179,19 @@ class MaskRCNN(nn.Module):
 
     def classify_rois_flat(self, boxes_flat, batch_idx, image_meta,
                            mrcnn_feature_maps, head=None):
-        """Classifier stage over a flat ROI list (gather-path ROIAlign + FC
-        head). Returns ([N, K] logits, [N, K] probs, [N, K, 6] deltas).
-        ``head``: the classifier's parameters and buffers to run it on
-        (``torch.func.functional_call``; a traced branch passes them in),
-        by default its own."""
+        """Classifier stage over a flat ROI list (compact ROIAlign with
+        every row live, one kernel launch on CUDA, + FC head). Returns
+        ([N, K] logits, [N, K] probs, [N, K, 6] deltas). ``head``: the
+        classifier's parameters and buffers to run it on
+        (``torch.func.functional_call``; a traced branch passes them in), by
+        default its own."""
         with trace.span("classifier.align"):
-            aligned = pyramid_roi_align_flat(boxes_flat, batch_idx,
-                                             image_meta,
-                                             list(mrcnn_feature_maps),
-                                             self.pool_size)
+            every_row = torch.full((), boxes_flat.shape[0], dtype=torch.int32,
+                                   device=mrcnn_feature_maps[0].device)
+            aligned = pyramid_roi_align_compact(boxes_flat, batch_idx,
+                                                every_row, image_meta,
+                                                list(mrcnn_feature_maps),
+                                                self.pool_size)
         with trace.span("classifier.head"):
             if head is None:
                 logits, probs, deltas = self.classifier(aligned[None])

@@ -132,7 +132,7 @@ def _int_table(rows, device, site: str):
     """An int64 tensor of the nested int lists ``rows``, copied to
     ``device`` (on a card the copy waits for the stream: a host wait at
     ``table.<site>``). Under export it is built from ops, not as a tensor
-    constant: the adaptive classifier's chunks run in traced ``cond``
+    constant: the adaptive classifier runs in traced ``cond``
     branches, whose graphs cannot hold one."""
     if not torch.compiler.is_exporting():
         with trace.waits(f"table.{site}"):

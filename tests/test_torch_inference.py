@@ -22,6 +22,7 @@ from m3d_torch.config import Config as TConfig
 from m3d_torch.models import inference as T_inf
 from m3d_torch.models.mask_rcnn import MaskRCNN
 from m3d_torch.ops import roialign_compact as TC
+from m3d_torch.ops.roialign3d import pyramid_roi_align_flat
 from test_torch_models import (CLOSE, F32, TINY, T, assert_close, port,
                                randomize)
 
@@ -150,6 +151,73 @@ def test_chunked_roi_stage_zero_fills_skipped_chunks():
     np.testing.assert_array_equal(whole[0].numpy(), x.numpy() + 1)
     none = T_inf.chunked_roi_stage(lambda c: (c + 1,), x, 0, 3)
     assert none[0].shape == x.shape and (none[0] == 0).all()
+
+
+CLS_B, CLS_N, CLS_CHUNK = 2, 40, 16
+
+
+@pytest.fixture(scope="module")
+def classifier_case(tiny_models):
+    """The tiny model's feature maps and [2, 40] proposal slots: random
+    boxes of many sizes, some empty and some on the far border."""
+    _, _, tm, image, meta, _ = tiny_models
+    rng = np.random.RandomState(17)
+    lo = rng.uniform(0.0, 0.8, (CLS_B, CLS_N, 3))
+    hi = np.minimum(lo + rng.uniform(0.05, 0.5, (CLS_B, CLS_N, 3)), 1.0)
+    boxes = np.concatenate([lo, hi], -1).astype(np.float32)
+    boxes[:, ::9] = 0.0
+    boxes[:, 1::11, 3:] = 1.0
+    with torch.no_grad():
+        feats = list(tm.extract_features(T(image))[:4])
+    return tm, T(boxes), T(meta), feats
+
+
+@pytest.mark.parametrize("live", [0, 1, CLS_CHUNK, CLS_CHUNK + 1,
+                                  CLS_B * CLS_N])
+@torch.no_grad()
+def test_classifier_stage_equals_chunked_gather(classifier_case, live):
+    """``compacted_classifier_stage`` (one compact ROIAlign and one head
+    pass over the launched chunks' rows) against the composition it
+    replaced: the gather ROIAlign and the head on each launched chunk of
+    the valid-first rows, zeros after the last launched chunk (and
+    everywhere if nothing is live). The invalid slots inside the last
+    launched chunk are sampled from their boxes as the chunk's other rows
+    are. 1e-6: the head's products run over another number of rows."""
+    tm, boxes, meta, feats = classifier_case
+    rows = CLS_B * CLS_N
+    valid = np.zeros(rows, bool)
+    valid[np.random.RandomState(live).permutation(rows)[:live]] = True
+    valid = T(valid.reshape(CLS_B, CLS_N))
+    launches = TC.KERNEL.launches
+    got = T_inf.compacted_classifier_stage(tm, boxes, valid, meta, feats,
+                                           CLS_CHUNK)
+    assert TC.KERNEL.launches == launches    # CPU: the plain version
+
+    order = torch.sort((~valid.reshape(rows)).to(torch.uint8),
+                       stable=True).indices
+    boxes_f = boxes.reshape(rows, 6)[order]
+    batch_f = torch.arange(CLS_B).repeat_interleave(CLS_N)[order].to(
+        torch.int32)
+    launched = max(-(-live // CLS_CHUNK), 1)
+    want = [torch.zeros((rows,) + g.shape[2:]) for g in got]
+    for i in range(launched):
+        sl = slice(i * CLS_CHUNK, (i + 1) * CLS_CHUNK)
+        pooled = pyramid_roi_align_flat(boxes_f[sl], batch_f[sl], meta,
+                                        feats, tm.pool_size)
+        for w, o in zip(want, tm.classifier(pooled[None])):
+            w[sl] = o[0]
+    if live == 0:
+        want = [torch.zeros_like(w) for w in want]
+    for g, w in zip(got, want):
+        unsorted = torch.empty_like(w)
+        unsorted[order] = w
+        assert g.shape == (CLS_B, CLS_N) + w.shape[1:]
+        torch.testing.assert_close(g, unsorted.reshape(g.shape), rtol=1e-6,
+                                   atol=1e-6)
+        flat = g.reshape(rows, -1)[order]
+        assert (flat[launched * CLS_CHUNK:] == 0).all()
+        if live % CLS_CHUNK:     # invalid rows computed in the last chunk
+            assert (flat[live:launched * CLS_CHUNK] != 0).any(-1).all()
 
 
 def test_default_chunks_match_jax(tiny_models):

@@ -438,30 +438,52 @@ def test_fc_kernel_at_bench_shapes_on_card(n, bounds, general):
     assert torch.equal(TF.roialign_fc(*args), got)
 
 
+def _rats_pyramid(rng, c=256):
+    """bf16 levels at the rats config's shapes (256 x 256 x 12, strides
+    (4, 4, 1) to (32, 32, 1), B=4) on the card."""
+    return [torch.from_numpy(rng.randn(4, s, s, 12, c).astype(np.float32))
+            .to(torch.bfloat16).cuda() for s in (64, 32, 16, 8)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("total", [0, 1, 37, 200])
-def test_compact_kernel_at_bench_shape_on_card(total):
-    """The redesigned compact kernel at the mask stage's shape (200 rows,
-    p = 14, C = 256) and through the padded entry: one bf16 rounding of the
-    largest output, rows >= total exactly zero."""
+@pytest.mark.parametrize("case,n,p,total", [
+    ("mask", 200, 14, 0), ("mask", 200, 14, 1), ("mask", 200, 14, 37),
+    ("mask", 200, 14, 200),
+    ("classifier", 2000, 7, 2000),    # the adaptive classifier's rows
+    ("rats_wide", 1000, 7, 1000)])    # P2 boxes wider than 32 cells
+def test_compact_kernel_at_bench_shape_on_card(case, n, p, total):
+    """The redesigned compact kernel at the adaptive stages' shapes against
+    its plain version: the mask stage's (200 rows, p = 14, C = 256, also
+    through the padded entry), the classifier's (2000 rows, p = 7, every
+    row live), and rats' anisotropic 64 x 64 x 12 P2 pyramid with boxes
+    spanning 35-45 cells in y and x, the rows a 32-cell slab clamps. One
+    bf16 rounding of the largest output, rows >= total exactly zero."""
     _needs_card()
     rng = np.random.RandomState(30 + total)
-    feats = _bench_pyramid(rng)
-    n = 200
+    feats = _rats_pyramid(rng) if case == "rats_wide" else _bench_pyramid(rng)
     levels = torch.from_numpy((np.arange(n) % 4).astype(np.int32)).cuda()
     bat = torch.from_numpy(np.sort(rng.randint(0, 4, n)).astype(np.int32)) \
         .cuda()
-    lo = rng.uniform(-0.1, 0.7, (3, n)).astype(np.float32)
-    dims = torch.tensor([f.shape[1] for f in feats])[levels.long().cpu()]
-    pos = torch.stack([TR.axis_positions(T(l), T(l + 0.35), dims, 14)
-                       for l in lo], 1).contiguous().cuda()
+    if case == "rats_wide":
+        lo = rng.uniform(0.0, 0.3, (3, n)).astype(np.float32)
+        hi = lo + rng.uniform(0.55, 0.7, (3, n)).astype(np.float32)
+    else:
+        lo = rng.uniform(-0.1, 0.7, (3, n)).astype(np.float32)
+        hi = lo + 0.35
+    pos = torch.stack([TR.axis_positions(T(lo[a]), T(hi[a]), torch.tensor(
+        [f.shape[1 + a] for f in feats])[levels.long().cpu()], p)
+        for a in range(3)], 1).contiguous().cuda()
+    if case == "rats_wide":
+        p2 = levels == 0
+        assert ((pos[:, :2, -1] - pos[:, :2, 0])[p2] > 32).all()
     tt = torch.tensor(total, dtype=torch.int32, device="cuda")
     got = TC.roialign_compact(levels, bat, tt, pos, feats).float()
+    assert got.shape == (n, p, p, p, 256)
     ref = TC.roialign_compact_plain(levels, bat, tt, pos,
                                     [f.float() for f in feats])
     assert (got[total:] == 0).all() and torch.isfinite(got).all()
     assert (got - ref).abs().max() <= 1e-2 * max(ref.abs().max(), 1e-30)
-    if total == n:
+    if case == "mask" and total == n:
         pad = TC.roialign_padded(levels, pos, feats, 50).float()
         bat_p = torch.arange(n, dtype=torch.int32, device="cuda") // 50
         ref_p = TC.roialign_compact_plain(levels, bat_p, tt, pos,

@@ -195,8 +195,8 @@ def test_predict_matches_jax_inference_fn(served, which):
 class _Traced(torch.nn.Module):
     """The traced forms under test, in one graph: the fixpoint NMS on a
     chain that settles and on one past the round cap, the blockwise NMS on
-    N above one block with a dead block, and ``chunked_roi_stage`` with the
-    live count an input."""
+    N above one block with a dead block, and ``chunked_roi_stage`` and
+    ``launched_roi_stage`` with the live count an input."""
 
     def forward(self, chain, chain_scores, boxes, scores, valid, rois, total):
         settled = TN.nms_3d_fixpoint(chain[:, :40], chain_scores[:, :40],
@@ -205,10 +205,11 @@ class _Traced(torch.nn.Module):
                                     max_rounds=64)
         blocks = TN.nms_3d_blockwise(boxes, scores, 0.3, 64, valid=valid,
                                      block_size=128)
-        stage = T_inf.chunked_roi_stage_traced(
-            _stage, rois, total, 8, (((2,), torch.float32),
-                                     ((3,), torch.int32)))
-        return settled, capped, blocks, stage
+        shapes = (((2,), torch.float32), ((3,), torch.int32))
+        stage = T_inf.chunked_roi_stage_traced(_stage, rois, total, 8, shapes)
+        launched = T_inf.launched_roi_stage_traced(_stage, rois, total, 8,
+                                                   shapes)
+        return settled, capped, blocks, stage, launched
 
 
 def _stage(x):
@@ -241,7 +242,7 @@ def test_traced_forms_equal_eager_bit_for_bit():
     args = (chain, chain_scores, boxes, scores, valid, rois,
             torch.tensor(29, dtype=torch.int32))
     program = serve.export_program(mod, args).module()
-    settled, capped, blocks, _ = mod(*args)
+    settled, capped, blocks, *_ = mod(*args)
     greedy = TN.nms_3d_numpy(chain[0].numpy(), chain_scores[0].numpy(),
                              CHAIN_THR, 100)
     np.testing.assert_array_equal(settled[0][settled[1]].numpy(),
@@ -251,7 +252,8 @@ def test_traced_forms_equal_eager_bit_for_bit():
         args = args[:-1] + (torch.tensor(total, dtype=torch.int32),)
         got = program(*args)
         want = (settled, capped, blocks,
-                T_inf.chunked_roi_stage(_stage, rois, total, 8))
+                T_inf.chunked_roi_stage(_stage, rois, total, 8),
+                T_inf.launched_roi_stage(_stage, rois, total, 8))
         for g, w in zip(got, want):
             for a, b in zip(g, w):
                 assert a.dtype == b.dtype
